@@ -10,17 +10,30 @@ Phases, each printing one JSON line:
              per source, in parallel) and prints the ptxas register /
              shared-memory / spill summary.
 3. kernels — each kernel against its plain PyTorch version at the shapes
-             the main path gives it, with the tolerance stated, and CUDA-event
+             the main paths give it, with the tolerance stated, and CUDA-event
              times of the kernel, the plain version, a PyTorch library call
              computing the same function (a yardstick the port never calls)
-             and the card's lower bound for the same work.
+             and the card's lower bound for the same work: kernel A (resblock
+             stage), kernel B (LSTM recurrence) in its serving form at the
+             serving shapes and in its training form at the training shapes,
+             kernel C (LSTM BPTT backward) at the training shapes.
 4. main    — ``load_synthesizer(default_config())`` on CUDA, reference
              features of ``assets/vocoder/val/val_0000.wav``, a seeded
              unit-norm speaker embedding, and ``synthesize`` on 3 sentences;
-             checks shapes, finiteness and that both kernels were launched.
+             checks shapes, finiteness and that kernels A and B were launched.
    A profiled request follows (device time by kernel, idle share).
 5. card_vs_cpu — one request again with ``device="cpu"`` (plain versions);
              durations and mels at f32 tolerance, waveforms by SNR (bf16).
+6. train   — writes a 64-utterance example dataset made from a seed to disk
+             and runs ``Trainer(...).fit`` on CUDA from the committed trained
+             weights at full width, batch 16, dropout on: one warm-up step and
+             three timed ones. Checks the 10 loss components, the gradient
+             norm, that every parameter had a gradient and nearly all changed,
+             that the BatchNorm statistics moved, and that kernel B's training
+             form and kernel C were each launched 4 times per step.
+7. train_profile — one more step under ``torch.profiler``.
+8. train_card_vs_cpu — one step's loss components and every gradient leaf,
+             without dropout, on the card against ``device="cpu"``.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -30,8 +43,10 @@ that line is printed. Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -179,8 +194,9 @@ def phase_resblock(torch, synth_gen, mel2b):
 
 
 def phase_lstm(torch, model, cfg):
-    """Kernel B vs plain on one BiLSTM layer of the audio encoder at the
-    largest src bucket, the asset's weights, inputs of post-ReLU scale."""
+    """Kernel B's serving form vs plain on one BiLSTM layer of the audio
+    encoder at the largest src bucket, B = 1, the asset's weights, inputs
+    of post-ReLU scale."""
     from styler_tpu_torch.ops.lstm import lstm_recurrence, lstm_recurrence_plain, pack_gates, pack_w_hh
     from styler_tpu_torch.ops.recurrent import flip_padded
 
@@ -208,8 +224,8 @@ def phase_lstm(torch, model, cfg):
         want = lstm_recurrence_plain(g, w)
         err = (got - want).abs().max().item()
         tol = 1e-4  # exact f32 both sides, another sum order over 256 steps
-        check(bool(torch.isfinite(got).all()), "lstm: non-finite output")
-        check(err <= tol, f"lstm: max |kernel - plain| {err} > {tol}")
+        check(bool(torch.isfinite(got).all()), "lstm serving form: non-finite output")
+        check(err <= tol, f"lstm serving form: max |kernel - plain| {err} > {tol}")
         ms = cuda_ms(torch, lambda: lstm_recurrence(g, w), 20)
         plain_ms = cuda_ms(torch, lambda: lstm_recurrence_plain(g, w), 2)
         # yardstick: cuDNN nn.LSTM, one bidirectional layer per branch on an
@@ -226,13 +242,361 @@ def phase_lstm(torch, model, cfg):
     flops = sum(2 * T * 2.0 * 4 * H * H for H in hiddens)  # recurrent matvecs, both directions
     n_bytes = sum(2 * (T * 4 * H + 4 * H * H + T * H) * 4.0 for H in hiddens)
     b_ms, b_by = bound(flops, PEAK_F32, n_bytes)
-    emit("kernels", kernel="lstm_recurrence", shape={"S": len(gates), "B": 1, "T": T, "Hp": hp},
+    emit("kernels", kernel="lstm_recurrence", form="serving (h only)",
+         shape={"S": len(gates), "B": 1, "T": T, "Hp": hp},
          hiddens=hiddens, valid_length=int(lengths[0]), max_abs_err=err, tolerance=tol,
          ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
          flops=flops, bytes=n_bytes, launches_per_request=2)
     n_layers = len(lstms[0].layer_params())
     return {"ms": n_layers * ms, "plain_ms": n_layers * plain_ms, "library_ms": n_layers * lib_ms,
             "bound_ms": n_layers * b_ms, "bound_by": b_by, "max_abs_err": err}
+
+
+def phase_lstm_train(torch, model, cfg, batch_size):
+    """Kernel B's training form (h, c, acts) and kernel C (BPTT backward)
+    vs their plain versions on one BiLSTM layer of the audio encoder at
+    the training path's shapes: the four necks' layer-1 weights of the
+    asset, both directions (S = 8), B = batch_size, T = the largest src
+    bucket, ragged valid lengths, dh_out from a seeded normal."""
+    from styler_tpu_torch.ops.lstm import (
+        lstm_backward, lstm_backward_plain, lstm_recurrence, lstm_recurrence_plain,
+        pack_gates, pack_w_hh,
+    )
+    from styler_tpu_torch.ops.recurrent import flip_padded
+
+    dev = torch.device("cuda")
+    enc = model.style_modeling.audio_encoder
+    lstms = (enc.lstm_d, enc.lstm_p, enc.lstm_e, enc.lstm_r)
+    B, T = batch_size, cfg.src_buckets[-1]
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    lengths = torch.randint(T // 2, T + 1, (B,), generator=gen)
+    lengths[0] = T
+    lengths = lengths.to(dev)
+    valid = (torch.arange(T, device=dev)[None, :] < lengths[:, None])[..., None]
+    gates, w_hh, hiddens, xs = [], [], [], []
+    with torch.no_grad():
+        for m in lstms:
+            p = m.layer_params()[0]
+            x = torch.relu(torch.randn(B, T, p["fwd"]["w_ih"].shape[1], generator=gen)).to(dev) * valid
+            xs.append(x)
+            for d in ("fwd", "bwd"):
+                xd = x if d == "fwd" else flip_padded(x, lengths)
+                gates.append(xd @ p[d]["w_ih"].t() + p[d]["b_ih"] + p[d]["b_hh"])
+                w_hh.append(p[d]["w_hh"].detach())
+                hiddens.append(p[d]["w_hh"].shape[1])
+        hp = max(hiddens)
+        g, w = pack_gates(gates, hp), pack_w_hh(w_hh, hp)
+        S = len(gates)
+        dh = torch.zeros(S, B, T, hp)
+        for s_, H in enumerate(hiddens):  # no gradient ever reaches a padded unit
+            dh[s_, ..., :H] = torch.randn(B, T, H, generator=gen)
+        dh = dh.to(dev)
+
+        # kernel B, training form
+        h, c, acts = lstm_recurrence(g, w, save=True)
+        torch.cuda.synchronize()
+        h_p, c_p, acts_p = lstm_recurrence_plain(g, w, save=True)
+        # exact f32 both sides, another sum order over 256 steps. h and the
+        # activated gates are bounded by 1; c is not (it adds up to one per
+        # step), so each array is held to 1e-4 of max(1, its scale).
+        tol_b = 1e-4
+        errs_b = {}
+        for name, got, want in (("h", h, h_p), ("c", c, c_p), ("acts", acts, acts_p)):
+            check(bool(torch.isfinite(got).all()), f"lstm training form: non-finite {name}")
+            err, scale = (got - want).abs().max().item(), want.abs().max().item()
+            errs_b[name] = {"max_abs_err": err, "scale": scale}
+            check(err <= tol_b * max(scale, 1.0),
+                  f"lstm training form {name}: max |kernel - plain| {err} > {tol_b} x {scale}")
+        err_b = max(e["max_abs_err"] for e in errs_b.values())
+        check(bool(torch.equal(lstm_recurrence(g, w), h)), "lstm: serving and training forms differ in h")
+        ms_b = cuda_ms(torch, lambda: lstm_recurrence(g, w, save=True), 20)
+        ms_b_serving = cuda_ms(torch, lambda: lstm_recurrence(g, w), 20)
+        plain_ms_b = cuda_ms(torch, lambda: lstm_recurrence_plain(g, w, save=True), 1)
+
+        # kernel C on the residuals kernel B saved
+        dg, dw = lstm_backward(dh, acts, c, h, w)
+        torch.cuda.synchronize()
+        dg_p, dw_p = lstm_backward_plain(dh, acts, c, h, w)
+        # exact f32 both sides: dgates chains 256 steps in another sum order,
+        # dW sums B*T = 4096 terms in another order. 1e-4 of the plain
+        # version's scale holds both (measured ~1e-6 and ~3e-6 of the scale).
+        tol_c = 1e-4
+        scale_dg, scale_dw = dg_p.abs().max().item(), dw_p.abs().max().item()
+        err_dg, err_dw = (dg - dg_p).abs().max().item(), (dw - dw_p).abs().max().item()
+        check(bool(torch.isfinite(dg).all() and torch.isfinite(dw).all()), "lstm backward: non-finite")
+        check(err_dg <= tol_c * scale_dg, f"lstm backward dgates: {err_dg} > {tol_c} x {scale_dg}")
+        check(err_dw <= tol_c * scale_dw, f"lstm backward dW: {err_dw} > {tol_c} x {scale_dw}")
+        for s_, H in enumerate(hiddens):
+            check(bool((dg[s_].reshape(B, T, 4, hp)[..., H:] == 0).all() and (dw[s_, H:] == 0).all()
+                       and (dw[s_].reshape(hp, 4, hp)[..., H:] == 0).all()),
+                  "lstm backward: padded units are not exactly 0")
+        dg2, dw2 = lstm_backward(dh, acts, c, h, w)
+        check(bool(torch.equal(dg, dg2) and torch.equal(dw, dw2)), "lstm backward: not deterministic")
+        ms_c = cuda_ms(torch, lambda: lstm_backward(dh, acts, c, h, w), 20)
+        plain_ms_c = cuda_ms(torch, lambda: lstm_backward_plain(dh, acts, c, h, w), 1)
+
+    # yardstick: cuDNN nn.LSTM, one bidirectional layer per branch on the
+    # padded batch (it also computes the input projection and its
+    # gradients): forward in training mode for B, backward = (forward +
+    # backward) - forward for C
+    libs = []
+    for m, x in zip(lstms, xs):
+        p = m.layer_params()[0]
+        H = p["fwd"]["w_hh"].shape[1]
+        lstm = torch.nn.LSTM(x.shape[-1], H, batch_first=True, bidirectional=True).to(dev)
+        with torch.no_grad():
+            for d, sfx in (("fwd", ""), ("bwd", "_reverse")):
+                for n in ("w_ih", "w_hh", "b_ih", "b_hh"):
+                    getattr(lstm, f"{n.replace('w_', 'weight_').replace('b_', 'bias_')}_l0{sfx}").copy_(p[d][n])
+        libs.append((lstm.train(), x.clone().requires_grad_(),
+                     torch.randn(B, T, 2 * H, generator=gen).to(dev)))
+
+    def lib_forward():
+        return [lstm(x)[0] for lstm, x, _ in libs]
+
+    def lib_forward_backward():
+        torch.autograd.backward(lib_forward(), [cot for _, _, cot in libs])
+
+    lib_f = cuda_ms(torch, lib_forward, 10)
+    lib_fb = cuda_ms(torch, lib_forward_backward, 10)
+
+    # work of the unpadded recurrences: the recurrent products (B: h . W;
+    # C: dgates . W^T and h^T . dgates), each array read or written once
+    n_rec = B * T
+    flops_b = sum(n_rec * 2.0 * 4 * H * H for H in hiddens)
+    bytes_b = sum((n_rec * (4 * H + H + H + 4 * H) + 4 * H * H) * 4.0 for H in hiddens)
+    flops_c = sum(n_rec * 2 * 2.0 * 4 * H * H for H in hiddens)
+    bytes_c = sum((n_rec * (H + 4 * H + H + H + 4 * H) + 2 * 4 * H * H) * 4.0 for H in hiddens)
+    bb_ms, bb_by = bound(flops_b, PEAK_F32, bytes_b)
+    bc_ms, bc_by = bound(flops_c, PEAK_F32, bytes_c)
+    shape = {"S": S, "B": B, "T": T, "Hp": hp}
+    emit("kernels", kernel="lstm_recurrence", form="training (h, c, acts)", shape=shape,
+         hiddens=hiddens, valid_lengths=[int(v) for v in lengths.tolist()],
+         max_abs_err=err_b, errors=errs_b, tolerance=f"{tol_b} x max(1, max|plain|) each",
+         ms=ms_b, serving_form_ms_same_shape=ms_b_serving,
+         plain_ms=plain_ms_b, library_ms=lib_f, library="cuDNN nn.LSTM forward, training mode",
+         bound_ms=bb_ms, bound_by=bb_by, flops=flops_b, bytes=bytes_b, launches_per_step=4)
+    emit("kernels", kernel="lstm_backward", shape=shape, hiddens=hiddens,
+         max_abs_err_dgates=err_dg, scale_dgates=scale_dg, max_abs_err_dw=err_dw, scale_dw=scale_dw,
+         tolerance=f"{tol_c} x max|plain| each", ms=ms_c, plain_ms=plain_ms_c,
+         library_ms=lib_fb - lib_f, library="cuDNN nn.LSTM (forward+backward) - forward",
+         library_forward_ms=lib_f, library_forward_backward_ms=lib_fb,
+         bound_ms=bc_ms, bound_by=bc_by, flops=flops_c, bytes=bytes_c, launches_per_step=4)
+    per_step = 4  # 2 layers x (main pass + DAT pass)
+    rec_b = {"ms": per_step * ms_b, "plain_ms": per_step * plain_ms_b, "library_ms": per_step * lib_f,
+             "bound_ms": per_step * bb_ms, "bound_by": bb_by, "max_abs_err": err_b}
+    rec_c = {"ms": per_step * ms_c, "plain_ms": per_step * plain_ms_c,
+             "library_ms": per_step * (lib_fb - lib_f), "bound_ms": per_step * bc_ms,
+             "bound_by": bc_by, "max_abs_err": max(err_dg, err_dw)}
+    return rec_b, rec_c
+
+
+def profile_rows(torch, prof):
+    """(device kernels, host operators) of a profile, each as (name, count,
+    own ms) sorted by time. Device-side events only for the first: an aten
+    op's own row repeats its kernels' time."""
+    rows = [
+        (e.key, e.count, e.self_device_time_total / 1e3)
+        for e in prof.key_averages()
+        # kernels and copies only: an annotation's device row (the
+        # optimizer's "Optimizer.step#...") repeats the kernels under it
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and not getattr(e, "is_user_annotation", False) and "#" not in e.key
+    ]
+    rows = sorted((r for r in rows if r[2] > 0), key=lambda r: -r[2])
+    host = sorted(
+        ((e.key, e.count, e.self_cpu_time_total / 1e3) for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CPU),
+        key=lambda r: -r[2],
+    )
+    return rows, host
+
+
+def emit_profile(phase, rows, host, wall_ms, **kw):
+    busy_ms = sum(r[2] for r in rows)
+    emit(phase, wall_ms=wall_ms,
+         device_busy_ms=busy_ms if rows else "not measured",
+         device_idle_share=(1 - busy_ms / wall_ms) if rows else "not measured",
+         host_op_ms=sum(r[2] for r in host), host_ops=sum(r[1] for r in host),
+         port_kernels=[{"kernel": k[:90], "count": n, "ms": ms} for k, n, ms in rows
+                       if "lstm_" in k or "resblock_" in k],
+         top=[{"kernel": k[:90], "count": n, "ms": ms} for k, n, ms in rows[:15]],
+         top_host=[{"op": k[:60], "count": n, "ms": ms} for k, n, ms in host[:10]], **kw)
+
+
+def phase_train(torch, cfg, smi, workdir):
+    """The training main path: example dataset on disk -> Trainer.fit on
+    CUDA from the trained asset, batch 16, dropout on. Returns the trainer
+    and the launch counts of the whole run."""
+    from styler_tpu_torch.ops.lstm import lstm_backward, lstm_recurrence
+    from styler_tpu_torch.train.example import write_example_dataset
+    from styler_tpu_torch.train.trainer import Trainer
+
+    n_steps = 4  # one warm-up, three timed
+    t0 = time.perf_counter()
+    ds_cfg = write_example_dataset(os.path.join(workdir, "data"), cfg.replace(log_step=1), 64, seed=0)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trainer = Trainer(ds_cfg, init="asset", ckpt_dir=os.path.join(workdir, "ckpt"),
+                      log_dir=os.path.join(workdir, "log"))
+    check(trainer.device.type == "cuda" and trainer.state.model.training, "trainer not on the card")
+    emit("train_setup", utterances=len(trainer.dataset), batches_per_epoch=trainer.steps_in_epoch,
+         batch_size=ds_cfg.batch_size, write_dataset_s=t_write, build_trainer_s=time.perf_counter() - t0,
+         parameters=sum(p.numel() for p in trainer.state.model.parameters()))
+    model = trainer.state.model
+    before = {k: v.detach().clone() for k, v in model.named_parameters()}
+    stats_before = {k: v.clone() for k, v in model.named_buffers() if "running" in k}
+
+    torch.cuda.reset_peak_memory_stats()
+    lstm_recurrence.launches = lstm_recurrence.training_launches = lstm_backward.launches = 0
+    seen = {"b": 0, "c": 0, "t": time.perf_counter()}
+    walls = []
+
+    def on_step(state, comps):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        wall_ms, seen["t"] = (now - seen["t"]) * 1e3, now
+        vals = {k: float(v) for k, v in comps.items()}
+        check(len(vals) == 10 and all(math.isfinite(v) for v in vals.values()),
+              f"step {state.step}: non-finite loss component {vals}")
+        gn = float(state.grad_norm)
+        check(math.isfinite(gn) and gn > 0, f"step {state.step}: gradient norm {gn}")
+        check(all(p.grad is not None for p in model.parameters()), "a parameter has no gradient")
+        b = lstm_recurrence.training_launches - seen["b"]
+        c = lstm_backward.launches - seen["c"]
+        seen["b"], seen["c"] = lstm_recurrence.training_launches, lstm_backward.launches
+        check(b == 4 and c == 4, f"step {state.step}: kernel B (training form) launched {b} "
+                                 f"times and kernel C {c} times, expected 4 and 4")
+        walls.append(wall_ms)
+        emit("train", step=state.step, wall_ms=wall_ms, warm_up=state.step == 1, grad_norm=gn,
+             kernel_b_training_launches=b, kernel_c_launches=c, card=smi, **vals)
+        seen["t"] = time.perf_counter()
+
+    logs = []
+    trainer.fit(n_steps, on_step=on_step, log=logs.append)
+    torch.cuda.synchronize()
+    state = trainer.state
+    check(state.step == n_steps, f"step counter {state.step} after {n_steps} steps")
+    check(lstm_recurrence.launches == lstm_recurrence.training_launches,
+          "a serving-form launch on the training path")
+    changed = sum(int(not torch.equal(before[k], v.detach())) for k, v in model.named_parameters())
+    check(changed >= 0.95 * len(before), f"only {changed} of {len(before)} parameter leaves changed")
+    moved = sum(int(not torch.equal(stats_before[k], v)) for k, v in model.named_buffers()
+                if k in stats_before)
+    check(moved == len(stats_before) > 0, f"{moved} of {len(stats_before)} BatchNorm statistics moved")
+    check(os.path.exists(os.path.join(workdir, "ckpt", f"step_{n_steps}.pt")), "no checkpoint written")
+    check(sum("\"step\"" in line for line in logs) == n_steps, "one metrics line per step expected")
+    launches = {"lstm_recurrence_training": lstm_recurrence.training_launches,
+                "lstm_backward": lstm_backward.launches}
+    emit("train_summary", steps=n_steps, timed_step_wall_ms=walls[1:],
+         mean_timed_step_wall_ms=sum(walls[1:]) / len(walls[1:]),
+         leaves_changed=changed, leaves=len(before), batchnorm_statistics_moved=moved,
+         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+         max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30, card=smi, **launches)
+    check(all(n > 0 for n in launches.values()), f"a kernel of the training path never launched: {launches}")
+    return trainer, launches
+
+
+def phase_train_profile(torch, trainer) -> None:
+    """Where one train step's time goes (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = next(trainer.batches())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows, host = profile_rows(torch, prof)
+    t0 = time.perf_counter()
+    trainer.step(batch)
+    torch.cuda.synchronize()
+    emit_profile("train_profile", rows, host, wall_ms,
+                 unprofiled_step_wall_ms=(time.perf_counter() - t0) * 1e3,
+                 shapes={k: list(v.shape) for k, v in batch.items() if k in ("src_seq", "mel_target")})
+
+
+def phase_train_card_vs_cpu(torch, cfg) -> None:
+    """One step's forward and backward without dropout at B = 2, L = 32,
+    M = 128: the card (kernels B and C) against device="cpu" (their plain
+    versions), from the same weights and batch, for freshly initialised
+    weights and for the trained asset.
+
+    Components within 1e-4 relative. Every gradient leaf is held two ways:
+    its RMS error against the CPU leaf's RMS (or a tenth of the whole CPU
+    gradient's RMS where the leaf's own is smaller: the attention key
+    biases have a gradient of exactly 0 in theory and hold rounding noise
+    only), and its largest element error against max(1, max |cpu grad|).
+    The second is the looser one on
+    purpose: a ReLU whose input lies within f32 rounding of zero takes the
+    other branch on the other device, which moves ONE whole element of the
+    upstream gradient into a bias leaf (seen on fresh weights: decoder
+    pos_ffn w_1 bias and kernel off by 2.7e-3 of their scale on the card,
+    the kernel's error confined to the taps of one output channel, while
+    every CPU leaf is within 3e-6 of an f64 run, and isolated conv,
+    attention and matmul gradients on the card within 2e-6 of f64). The
+    trained asset on this random batch is also badly conditioned in f32
+    for the leaves at the far end of the backward pass (CPU f32 against CPU
+    f64: 2.6e-3 of the scale on the text encoder's first w_qs/bias). Both
+    tolerances still catch a wrong kernel or a TF32 product (1e-3 per
+    product, on every leaf).
+    """
+    import numpy as np
+
+    from styler_tpu_torch.core.checkpoint import default_acoustic_asset, flatten_tree, load_acoustic_npz
+    from styler_tpu_torch.core.convert import to_flax_tree
+    from styler_tpu_torch.data.dataset import batch_to_device
+    from styler_tpu_torch.train import compute_gradients, create_train_state, train_state_from_flax
+    from styler_tpu_torch.train.example import example_batch
+
+    params, stats = load_acoustic_npz(default_acoustic_asset())
+    batch = example_batch(cfg, B=2, L=32, M=128, seed=0)
+    makers = {  # name: (L2 tolerance, element tolerance, state maker)
+        "fresh": (1e-3, 1e-2, lambda dev: create_train_state(cfg, torch.Generator().manual_seed(0), dev)),
+        "asset": (1e-2, 1e-2, lambda dev: train_state_from_flax(cfg, params, stats, device=dev)),
+    }
+    out = {}
+    for name, (tol_l2, tol_max, make) in makers.items():
+        res = {}
+        for dev in ("cuda", "cpu"):
+            state = make(dev)
+            comps = compute_gradients(state, batch_to_device(batch, dev), None, cfg.dat_weight)
+            res[dev] = ({k: float(v) for k, v in comps.items()},
+                        flatten_tree(to_flax_tree(state.model, grads=True)[0]))
+        comp_err = {}
+        for k, want in res["cpu"][0].items():
+            comp_err[k] = abs(res["cuda"][0][k] - want) / max(abs(want), 1e-12)
+            check(comp_err[k] <= 1e-4,
+                  f"train card vs cpu ({name}), component {k}: {res['cuda'][0][k]} vs {want}")
+        worst = {"l2": (None, -1.0), "max": (None, -1.0, 0)}
+        n_all = sum(v.size for v in res["cpu"][1].values())
+        rms_all = math.sqrt(sum(float((v.astype(np.float64) ** 2).sum()) for v in res["cpu"][1].values()) / n_all)
+        for k, want in res["cpu"][1].items():
+            diff = np.abs(res["cuda"][1][k].astype(np.float64) - want)
+            rms = math.sqrt(float((want.astype(np.float64) ** 2).mean()))
+            l2 = math.sqrt(float((diff ** 2).mean())) / max(rms, 0.1 * rms_all)
+            mx = float(diff.max()) / max(1.0, float(np.abs(want).max()))
+            if l2 > worst["l2"][1]:
+                worst["l2"] = (k, l2)
+            if mx > worst["max"][1]:  # and how many elements carry an error of that order
+                worst["max"] = (k, mx, int((diff > 0.1 * diff.max()).sum()))
+        check(worst["l2"][1] <= tol_l2, f"train card vs cpu ({name}): gradient leaf {worst['l2'][0]} "
+                                        f"off by {worst['l2'][1]} of its RMS")
+        check(worst["max"][1] <= tol_max, f"train card vs cpu ({name}): gradient leaf {worst['max'][0]} "
+                                          f"has an element off by {worst['max'][1]} of its scale")
+        out[name] = {"components_max_rel_err": max(comp_err.values()), "tolerance_components": 1e-4,
+                     "gradient_leaves": len(res["cpu"][1]),
+                     "worst_l2_leaf": worst["l2"][0], "worst_l2_rel_err": worst["l2"][1],
+                     "tolerance_l2": f"{tol_l2} x max(rms(cpu leaf), 0.1 rms(cpu gradient))",
+                     "cpu_gradient_rms": rms_all,
+                     "worst_element_leaf": worst["max"][0], "worst_element_rel_err": worst["max"][1],
+                     "elements_within_a_tenth_of_that_error": worst["max"][2],
+                     "tolerance_element": f"{tol_max} x max(1, max|cpu grad|)"}
+    emit("train_card_vs_cpu", **out,
+         deterministic_algorithms=torch.are_deterministic_algorithms_enabled(),
+         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
 
 
 def phase_profile(torch, synth, sentence, ref, spk) -> None:
@@ -248,26 +612,8 @@ def phase_profile(torch, synth, sentence, ref, spk) -> None:
         synth.synthesize(sentence, ref, spk)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only: an aten op's own row repeats its kernels' time
-    rows = [
-        (e.key, e.count, e.self_device_time_total / 1e3)
-        for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-    ]
-    rows = sorted((r for r in rows if r[2] > 0), key=lambda r: -r[2])
-    busy_ms = sum(r[2] for r in rows)
-    # host side: operators by their own CPU time (launches included)
-    host = sorted(
-        ((e.key, e.count, e.self_cpu_time_total / 1e3) for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CPU),
-        key=lambda r: -r[2],
-    )
-    emit("profile", sentence=sentence, wall_ms=wall_ms, text_to_ids_ms=text_ms,
-         device_busy_ms=busy_ms if rows else "not measured",
-         device_idle_share=(1 - busy_ms / wall_ms) if rows else "not measured",
-         host_op_ms=sum(r[2] for r in host), host_ops=sum(r[1] for r in host),
-         top=[{"kernel": k[:90], "count": n, "ms": ms} for k, n, ms in rows[:15]],
-         top_host=[{"op": k[:60], "count": n, "ms": ms} for k, n, ms in host[:10]])
+    rows, host = profile_rows(torch, prof)
+    emit_profile("profile", rows, host, wall_ms, sentence=sentence, text_to_ids_ms=text_ms)
 
 
 def main() -> int:
@@ -283,7 +629,7 @@ def main() -> int:
     from styler_tpu_torch.core.device import resolve_device
     from styler_tpu_torch.data.audio_io import read_wav_int
     from styler_tpu_torch.ops import build
-    from styler_tpu_torch.ops.lstm import lstm_recurrence
+    from styler_tpu_torch.ops.lstm import lstm_backward, lstm_recurrence
     from styler_tpu_torch.ops.resblock import fused_resblock_stage
     from styler_tpu_torch.synthesis import extract_reference_features, load_synthesizer
 
@@ -316,6 +662,7 @@ def main() -> int:
     mel2b = torch.from_numpy(np.stack([np.resize(val, (M, 80)), np.resize(val[::-1], (M, 80))])).cuda()
     rec_a = phase_resblock(torch, synth.generator, mel2b)
     rec_b = phase_lstm(torch, synth.model, cfg)
+    rec_b_train, rec_c = phase_lstm_train(torch, synth.model, cfg, cfg.batch_size)
 
     # 4. the main path: 3 requests after one warm-up request
     sr, wav = read_wav_int(os.path.join(ROOT, "assets", "vocoder", "val", "val_0000.wav"))
@@ -326,7 +673,7 @@ def main() -> int:
     synth.synthesize(SENTENCES[0], ref, spk)
     torch.cuda.synchronize()
     fused_resblock_stage.launches = 0
-    lstm_recurrence.launches = 0
+    lstm_recurrence.launches = lstm_recurrence.training_launches = lstm_backward.launches = 0
     outs = []
     for s in SENTENCES:
         t0 = time.perf_counter()
@@ -347,6 +694,8 @@ def main() -> int:
                 "lstm_recurrence": lstm_recurrence.launches}
     emit("main_launches", **launches)
     check(all(n > 0 for n in launches.values()), f"a kernel of the main path never launched: {launches}")
+    check(lstm_recurrence.training_launches == 0 and lstm_backward.launches == 0,
+          "serving launched a training kernel")
     phase_profile(torch, synth, SENTENCES[-1], ref, spk)
 
     # 5. card vs CPU on the first request
@@ -383,6 +732,19 @@ def main() -> int:
     res["wav_f32_vocoder"] = {"snr_db": snr, "min_snr_db": 50.0}
     check(snr > 50.0, f"card vs cpu f32 vocoder: SNR {snr} dB")
     emit("card_vs_cpu", sentence=SENTENCES[0], **res)
+    del cpu, synth
+    torch.cuda.empty_cache()
+
+    # 6-8. the training main path
+    workdir = tempfile.mkdtemp(prefix="smoke-train-", dir=os.path.join(ROOT, "styler_tpu_torch", "_build"))
+    try:
+        trainer, train_launches = phase_train(torch, cfg, smi, workdir)
+        phase_train_profile(torch, trainer)
+        del trainer
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    phase_train_card_vs_cpu(torch, cfg)
 
     common = {"route": "cuda"}
     kernels = [
@@ -395,7 +757,14 @@ def main() -> int:
          "replaces": "styler_tpu/ops/pallas_lstm.py:76",
          "launches": launches["lstm_recurrence"], "max_abs_err": rec_b["max_abs_err"],
          "ms": rec_b["ms"], "plain_ms": rec_b["plain_ms"], "bound_ms": rec_b["bound_ms"],
-         "bound_by": rec_b["bound_by"], "library_ms": rec_b["library_ms"]},
+         "bound_by": rec_b["bound_by"], "library_ms": rec_b["library_ms"],
+         # its training form, per train step (4 launches), on the training path
+         "training_form": {"launches": train_launches["lstm_recurrence_training"], **rec_b_train}},
+        {"name": "lstm_backward", **common, "source": "styler_tpu_torch/csrc/lstm_bwd.cu",
+         "replaces": "styler_tpu/ops/pallas_lstm.py:169",
+         "launches": train_launches["lstm_backward"], "max_abs_err": rec_c["max_abs_err"],
+         "ms": rec_c["ms"], "plain_ms": rec_c["plain_ms"], "bound_ms": rec_c["bound_ms"],
+         "bound_by": rec_c["bound_by"], "library_ms": rec_c["library_ms"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

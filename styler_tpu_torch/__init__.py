@@ -8,13 +8,17 @@ needs. It mirrors the reference's layout:
                 conversion, device selection.
 - ``textproc``  phoneme symbol set / cleaners / G2P (a copy).
 - ``dsp``       mel front end, f0 tracking, feature quantizers.
-- ``ops``       masking, positions, length regulation, calibration, the
+- ``data``      wav reading; the training dataset and bucketed loader.
+- ``ops``       masking, positions, length regulation, calibration,
+                dropout with explicit generators, gradient reversal, the
                 BiLSTM wrapper, and the hand-written CUDA kernels
                 (``ops/resblock.py``, ``ops/lstm.py``; sources in
                 ``csrc/``, built at first use by ``ops/build.py``).
 - ``models``    the STYLER acoustic model as ``nn.Module``s.
 - ``vocoder``   the iSTFTNet generator.
 - ``synthesis`` ``load_synthesizer`` / ``Synthesizer.synthesize``.
+- ``train``     losses, Noam Adam, train state, train / eval steps, the
+                trainer (``python -m styler_tpu_torch.train``).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """

@@ -19,6 +19,10 @@ each module type knows its own leaves:
 
 Every leaf of the tree must be used exactly once and every parameter
 and running statistic of the module loaded, else loading raises.
+
+``to_flax_tree`` is the inverse: a module's parameters, or their
+gradients, as a flax-style tree under the same names and layouts, so a
+gradient can be held against ``jax.grad`` leaf by leaf.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from styler_tpu_torch.core.checkpoint import flatten_tree
+from styler_tpu_torch.core.checkpoint import flatten_tree, unflatten_tree
 from styler_tpu_torch.vocoder.hifigan import ConvTranspose1dTorch, ResBlock1
 
 
@@ -107,3 +111,57 @@ def load_flax_tree(
     p.check_all_used()
     s.check_all_used()
     return p.used, s.used
+
+
+def to_flax_tree(module: nn.Module, grads: bool = False) -> Tuple[dict, dict]:
+    """``module`` as flax-style (params, batch_stats) trees of numpy
+    arrays: the inverse of ``load_flax_tree``. With ``grads=True`` the
+    params tree holds each parameter's ``.grad`` (which must exist)
+    instead of its value."""
+    params: Dict[str, np.ndarray] = {}
+    stats: Dict[str, np.ndarray] = {}
+
+    def value(t: torch.Tensor, name: str) -> torch.Tensor:
+        if not grads:
+            return t.detach()
+        if t.grad is None:
+            raise ValueError(f"{name} has no gradient")
+        return t.grad
+
+    for name, m in module.named_modules():
+        pre = name.replace(".", "/")
+
+        def put(dst: dict, leaf: str, t: torch.Tensor, fn=lambda a: a, pre=pre):
+            key = f"{pre}/{leaf}" if pre else leaf
+            dst[key] = fn(t).cpu().numpy().copy()
+
+        def par(leaf: str, t: torch.Tensor, fn=lambda a: a, name=name):
+            put(params, leaf, value(t, f"{name}.{leaf}"), fn)
+
+        if isinstance(m, nn.Linear):
+            par("kernel", m.weight, lambda a: a.t())
+            par("bias", m.bias)
+        elif isinstance(m, nn.Conv1d):
+            par("kernel", m.weight, lambda a: a.permute(2, 1, 0))
+            par("bias", m.bias)
+        elif isinstance(m, ConvTranspose1dTorch):
+            par("kernel", m.weight, lambda a: a.permute(2, 0, 1).flip(0))
+            par("bias", m.bias)
+        elif isinstance(m, (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm1d)):
+            par("scale", m.weight)
+            par("bias", m.bias)
+            if isinstance(m, nn.BatchNorm1d):
+                put(stats, "mean", m.running_mean)
+                put(stats, "var", m.running_var)
+        elif isinstance(m, nn.Embedding):
+            par("embedding", m.weight)
+        elif isinstance(m, ResBlock1):
+            for g, (w, b) in (("convs1", (m.w1, m.b1)), ("convs2", (m.w2, m.b2))):
+                wv, bv = value(w, f"{name}.{g}"), value(b, f"{name}.{g}")
+                for i in range(w.shape[0]):
+                    put(params, f"{g}_{i}/kernel", wv[i])
+                    put(params, f"{g}_{i}/bias", bv[i])
+        else:
+            for pname, t in m.named_parameters(recurse=False):
+                par(pname, t)
+    return unflatten_tree(params), unflatten_tree(stats)

@@ -19,6 +19,12 @@
 // Exact f32: no tensor cores, no TF32, expf/tanhf (build without
 // --use_fast_math). The dot product is summed first and then added to
 // the input gate, as jnp.dot(h, w_hh.T) + gx is in the reference.
+//
+// Two forms of one kernel. The serving form stores h only. The training
+// form (kSave) also stores c[t] and the activated gates (i, f, g, o) of
+// every step, which the BPTT kernel (lstm_bwd.cu) reads, as the Pallas
+// forward kernel returns them as residuals of its custom VJP. The flag
+// is a template parameter, so the serving launch pays nothing for it.
 
 #include <cuda_runtime.h>
 
@@ -32,10 +38,14 @@ __device__ __forceinline__ float sigmoid_f(float x) {
 //                          at k*Hp + u)
 // w_t:   [S, Hp, 4*Hp]    (w_t[s][j][r] = w_hh[r][j] of sequence group s)
 // h_out: [S, B, T, Hp]
+// c_out: [S, B, T, Hp], acts_out: [S, B, T, 4*Hp]  (training form only)
 // grid = S*B CTAs, block = 4*Hp threads (thread r owns gate row r)
+template <bool kSave>
 __global__ void lstm_recurrence_kernel(const float* __restrict__ gates,
                                        const float* __restrict__ w_t,
                                        float* __restrict__ h_out,
+                                       float* __restrict__ c_out,
+                                       float* __restrict__ acts_out,
                                        int B, int T, int Hp) {
   extern __shared__ float smem[];
   const int G = 4 * Hp;
@@ -69,6 +79,14 @@ __global__ void lstm_recurrence_kernel(const float* __restrict__ gates,
       const float hn = og * tanhf(c);
       h[row] = hn;
       ho[(size_t)t * Hp + row] = hn;
+      if (kSave) {
+        c_out[((size_t)seq * T + t) * Hp + row] = c;
+        float* a = acts_out + ((size_t)seq * T + t) * G;
+        a[row] = ig;
+        a[Hp + row] = fg;
+        a[2 * Hp + row] = gg;
+        a[3 * Hp + row] = og;
+      }
     }
     __syncthreads();
   }
@@ -80,17 +98,33 @@ extern "C" int styler_lstm_smem_bytes(int Hp) {
   return (Hp * 4 * Hp + Hp + 4 * Hp) * (int)sizeof(float);
 }
 
-// Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int styler_lstm_recurrence(const float* gates, const float* w_t,
-                                      float* h_out, int S, int B, int T,
-                                      int Hp, void* stream) {
+template <bool kSave>
+static int launch(const float* gates, const float* w_t, float* h_out,
+                  float* c_out, float* acts_out, int S, int B, int T, int Hp,
+                  void* stream) {
   const int threads = 4 * Hp;
   const int smem = styler_lstm_smem_bytes(Hp);
   cudaError_t err = cudaFuncSetAttribute(
-      lstm_recurrence_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      lstm_recurrence_kernel<kSave>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  lstm_recurrence_kernel<<<S * B, threads, smem, (cudaStream_t)stream>>>(
-      gates, w_t, h_out, B, T, Hp);
+  lstm_recurrence_kernel<kSave><<<S * B, threads, smem, (cudaStream_t)stream>>>(
+      gates, w_t, h_out, c_out, acts_out, B, T, Hp);
   return (int)cudaGetLastError();
+}
+
+// Serving form. Returns cudaGetLastError() after the launch (0 on success).
+extern "C" int styler_lstm_recurrence(const float* gates, const float* w_t,
+                                      float* h_out, int S, int B, int T,
+                                      int Hp, void* stream) {
+  return launch<false>(gates, w_t, h_out, nullptr, nullptr, S, B, T, Hp, stream);
+}
+
+// Training form: also stores c and the activated gates of every step.
+extern "C" int styler_lstm_recurrence_train(const float* gates,
+                                            const float* w_t, float* h_out,
+                                            float* c_out, float* acts_out,
+                                            int S, int B, int T, int Hp,
+                                            void* stream) {
+  return launch<true>(gates, w_t, h_out, c_out, acts_out, S, B, T, Hp, stream);
 }

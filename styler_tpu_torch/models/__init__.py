@@ -1,3 +1,3 @@
-"""The STYLER acoustic model as nn.Modules (eval forward)."""
+"""The STYLER acoustic model as nn.Modules."""
 
 from styler_tpu_torch.models.styler import STYLER, StylerOutput  # noqa: F401

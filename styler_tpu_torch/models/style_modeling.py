@@ -1,5 +1,9 @@
 """Style modeling: encoders -> DAT heads -> length regulation -> prediction
-(counterpart of ``styler_tpu/models/style_modeling.py``, eval forward).
+(counterpart of ``styler_tpu/models/style_modeling.py``).
+
+With ``d_target``/``p_target``/``e_target`` the forward is teacher-forced:
+the target durations regulate the length, the target pitch and energy
+feed the embeddings, and the predictions go to the loss unscaled.
 
 The ``encodings`` dict is the controllability contract:
 
@@ -15,7 +19,7 @@ The ``encodings`` dict is the controllability contract:
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn as nn
@@ -73,6 +77,7 @@ class StyleModeling(nn.Module):
             n_head=cfg.encoder_head,
             d_inner=cfg.fft_conv1d_filter_size,
             kernel_sizes=tuple(cfg.fft_conv1d_kernel_size),
+            dropout=cfg.encoder_dropout,
         )
         self.audio_encoder = AudioEncoder(
             n_mel_channels=cfg.n_mel_channels,
@@ -106,7 +111,8 @@ class StyleModeling(nn.Module):
 
         def predictor():
             return StylePredictor(
-                h, cfg.style_predictor_filter_size, cfg.style_predictor_kernel_size
+                h, cfg.style_predictor_filter_size, cfg.style_predictor_kernel_size,
+                cfg.style_predictor_dropout,
             )
 
         self.duration_predictor = predictor()
@@ -133,6 +139,17 @@ class StyleModeling(nn.Module):
         e_q = quantize_one_hot(e_input, self.config.n_bins)
         return torch.cat([mel_target, p_q, e_q, mel_aug], dim=-1)
 
+    def encode_audio(self, enc_cat, mel_len, src_len, max_src: int):
+        """Audio-branch encodings in the phoneme domain."""
+        return self.audio_encoder(enc_cat, mel_len, src_len, max_src)
+
+    def classify_augmentation(self, d_enc, p_enc, e_enc, src_mask):
+        return (
+            self.augmentation_classifier_d(d_enc, src_mask),
+            self.augmentation_classifier_p(p_enc, src_mask),
+            self.augmentation_classifier_e(e_enc, src_mask),
+        )
+
     def duration_rounded(self, log_d_prediction, d_control):
         """round(exp(ld) - log_offset) (half to even) * d_control, >= 0, int."""
         rounded = torch.round(torch.exp(log_d_prediction) - self.config.log_offset)
@@ -143,24 +160,27 @@ class StyleModeling(nn.Module):
         src_seq, speaker_embed, mel_target, mel_aug, p_norm, e_input,
         src_len, mel_len, src_mask, max_mel_len: int,
         d_control: float = 1.0, p_control: float = 1.0, e_control: float = 1.0,
+        mel_mask: Optional[torch.Tensor] = None,
+        d_target: Optional[torch.Tensor] = None,
+        p_target: Optional[torch.Tensor] = None,
+        e_target: Optional[torch.Tensor] = None,
+        dropout: Optional[torch.Generator] = None,
     ) -> StyleModelingOutput:
-        """Eval forward with predicted durations, pitch and energy."""
+        """Forward with predicted durations, pitch and energy, or teacher
+        forced where a target is given (``mel_mask`` is then the caller's).
+        ``dropout``: the step's generator, ``None`` for no dropout."""
         L = src_seq.shape[1]
         h = self.config.encoder_hidden
 
-        text_encoding = self.text_encoder(src_seq, src_mask)
+        text_encoding = self.text_encoder(src_seq, src_mask, dropout)
         text_neck_down = F.relu(self.text_linear_down(text_encoding))
         speaker_p = F.relu(self.speaker_linear_p(speaker_embed))  # [B, 128]
         speaker = F.relu(self.speaker_linear(speaker_embed))  # [B, 256]
 
         enc_cat = self.encoder_input_cat(mel_target, p_norm, e_input, mel_aug)
-        d_enc, p_enc, e_enc, n_enc = self.audio_encoder(enc_cat, mel_len, src_len, L)
+        d_enc, p_enc, e_enc, n_enc = self.encode_audio(enc_cat, mel_len, src_len, L)
 
-        dat_posteriors = (
-            self.augmentation_classifier_d(d_enc, src_mask),
-            self.augmentation_classifier_p(p_enc, src_mask),
-            self.augmentation_classifier_e(e_enc, src_mask),
-        )
+        dat_posteriors = self.classify_augmentation(d_enc, p_enc, e_enc, src_mask)
 
         speaker_t = speaker[:, None, :].expand(-1, L, -1)
         speaker_p_t = speaker_p[:, None, :].expand(-1, L, -1)
@@ -189,20 +209,34 @@ class StyleModeling(nn.Module):
             dim=-1,
         )
 
-        log_d_prediction = self.duration_predictor(text_neck + duration_up, src_mask)
-        streams, out_mel_len = length_regulate(
-            streams, self.duration_rounded(log_d_prediction, d_control), max_mel_len
-        )
-        out_mel_len = torch.clamp(out_mel_len, max=max_mel_len)
-        out_mel_mask = mask_from_lengths(out_mel_len, max_mel_len)
+        log_d_prediction = self.duration_predictor(text_neck + duration_up, src_mask, dropout)
+        if d_target is not None:
+            streams, out_mel_len = length_regulate(streams, d_target, max_mel_len)
+            out_mel_mask = mel_mask
+        else:
+            streams, out_mel_len = length_regulate(
+                streams, self.duration_rounded(log_d_prediction, d_control), max_mel_len
+            )
+            out_mel_len = torch.clamp(out_mel_len, max=max_mel_len)
+            out_mel_mask = mask_from_lengths(out_mel_len, max_mel_len)
 
         text_f, pitch_f, speaker_f, energy_f, noise_f = torch.split(streams, h, dim=-1)
 
-        e_prediction = self.energy_predictor(energy_f, out_mel_mask) * e_control
-        energy_embedding = self.energy_embedding(bucketize(e_prediction, self.energy_bins))
+        # the bin lookups carry no gradient: the embeddings learn from the
+        # targets, the predictors from the loss on their unscaled outputs
+        e_prediction = self.energy_predictor(energy_f, out_mel_mask, dropout)
+        if e_target is None:
+            e_prediction = e_prediction * e_control
+        energy_embedding = self.energy_embedding(
+            bucketize(e_prediction if e_target is None else e_target, self.energy_bins)
+        )
 
-        p_prediction = self.pitch_predictor(pitch_f + speaker_f, out_mel_mask) * p_control
-        pitch_embedding = self.pitch_embedding(bucketize(p_prediction, self.pitch_bins))
+        p_prediction = self.pitch_predictor(pitch_f + speaker_f, out_mel_mask, dropout)
+        if p_target is None:
+            p_prediction = p_prediction * p_control
+        pitch_embedding = self.pitch_embedding(
+            bucketize(p_prediction if p_target is None else p_target, self.pitch_bins)
+        )
 
         return StyleModelingOutput(
             encoder_output=text_f + pitch_embedding + speaker_f + energy_embedding,

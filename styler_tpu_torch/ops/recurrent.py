@@ -4,7 +4,10 @@
 Weights keep the PyTorch layout (w_ih [4H, In], w_hh [4H, H], gate order
 i, f, g, o). The input projection of every step is one matmul outside the
 recurrence; the recurrence itself runs in kernel B (``ops/lstm.py``),
-which takes every branch and both directions of a layer in one launch.
+which takes every branch and both directions of a layer in one launch,
+and its gradient in kernel C (``LSTMRecurrence``). Packing, flipping and
+unpacking are plain tensor ops that autograd differentiates, so every
+w_ih, w_hh, b_ih and b_hh and the inputs receive gradients.
 
 The backward direction flips each sequence within its VALID length and
 keeps padding at zero, so ``nn.LSTM`` on packed sequences is not this
@@ -18,7 +21,7 @@ from typing import Dict, List
 
 import torch
 
-from styler_tpu_torch.ops.lstm import lstm_recurrence, pack_gates, pack_w_hh
+from styler_tpu_torch.ops.lstm import LSTMRecurrence, pack_gates, pack_w_hh
 
 LayerParams = Dict[str, Dict[str, torch.Tensor]]
 
@@ -60,7 +63,7 @@ def fused_bilstm_branches(
                 x = outs[b] if d == "fwd" else flip_padded(outs[b], lengths)
                 gates.append(torch.matmul(x.float(), p["w_ih"].t()) + p["b_ih"] + p["b_hh"])
                 w_hh.append(p["w_hh"])
-        h = lstm_recurrence(pack_gates(gates, hp), pack_w_hh(w_hh, hp))
+        h = LSTMRecurrence.apply(pack_gates(gates, hp), pack_w_hh(w_hh, hp))
         outs = [
             torch.cat(
                 [h[2 * b, ..., :H], flip_padded(h[2 * b + 1, ..., :H], lengths)], dim=-1

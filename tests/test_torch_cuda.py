@@ -14,6 +14,9 @@ import torch
 
 from styler_tpu_torch.core.device import resolve_device
 from styler_tpu_torch.ops.lstm import (
+    LSTMRecurrence,
+    lstm_backward,
+    lstm_backward_plain,
     lstm_recurrence,
     lstm_recurrence_plain,
     pack_gates,
@@ -126,3 +129,117 @@ def test_lstm_kernel_matches_plain(cuda_device, B, T, hiddens):
     assert (got - want).abs().max().item() < 2e-5
     for s, H in enumerate(h for h in hiddens for _ in range(2)):
         assert torch.all(got[s, ..., H:] == 0.0)  # padded units stay exactly 0
+
+
+def _packed_problem(rng, B, T, hiddens, device):
+    gates, w_hh = [], []
+    for H in hiddens:
+        gates.append(torch.from_numpy(rng.standard_normal((B, T, 4 * H)).astype(np.float32)))
+        bound = 1.0 / np.sqrt(H)
+        w_hh.append(torch.from_numpy(rng.uniform(-bound, bound, (4 * H, H)).astype(np.float32)))
+    hp = max(hiddens)
+    dh = torch.zeros(len(hiddens), B, T, hp)
+    for s, H in enumerate(hiddens):  # no gradient reaches a padded unit
+        dh[s, ..., :H] = torch.from_numpy(rng.standard_normal((B, T, H)).astype(np.float32))
+    return pack_gates(gates, hp).to(device), pack_w_hh(w_hh, hp).to(device), dh.to(device)
+
+
+# (B, T, hiddens): the training shape of one layer (8 recurrences, Hp = 80
+# with three of four necks padded from 64), a ragged small one with Hp > H
+# and T not a multiple of the dW kernel's 32-term chunk, and B = 1.
+LSTM_BWD_SHAPES = [
+    (16, 256, (80, 80, 64, 64, 64, 64, 64, 64)),
+    (3, 33, (8, 80)),
+    (1, 50, (24,)),
+]
+
+
+@pytest.mark.parametrize("B,T,hiddens", LSTM_BWD_SHAPES)
+def test_lstm_training_form_matches_plain(cuda_device, B, T, hiddens):
+    g, w, _ = _packed_problem(np.random.default_rng(3), B, T, hiddens, cuda_device)
+    before = (lstm_recurrence.launches, lstm_recurrence.training_launches)
+    h, c, acts = lstm_recurrence(g, w, save=True)
+    torch.cuda.synchronize()
+    assert lstm_recurrence.launches - before[0] == 1
+    assert lstm_recurrence.training_launches - before[1] == 1
+    h_p, c_p, acts_p = lstm_recurrence_plain(g, w, save=True)
+    # exact f32 on both sides, sums in another order over up to 256 steps;
+    # c is unbounded, so relative to its scale
+    for got, want in ((h, h_p), (c, c_p), (acts, acts_p)):
+        assert got.shape == want.shape
+        assert (got - want).abs().max().item() <= 5e-5 * max(want.abs().max().item(), 1.0)
+    # the serving form gives the same h bit for bit
+    assert torch.equal(lstm_recurrence(g, w), h)
+
+
+@pytest.mark.parametrize("B,T,hiddens", LSTM_BWD_SHAPES)
+def test_lstm_backward_kernel_matches_plain(cuda_device, B, T, hiddens):
+    g, w, dh = _packed_problem(np.random.default_rng(4), B, T, hiddens, cuda_device)
+    h, c, acts = lstm_recurrence_plain(g, w, save=True)
+    before = lstm_backward.launches
+    dg, dw = lstm_backward(dh, acts, c, h, w)
+    torch.cuda.synchronize()
+    assert lstm_backward.launches - before == 1
+    dg_p, dw_p = lstm_backward_plain(dh, acts, c, h, w)
+    hp = max(hiddens)
+    assert dg.shape == (len(hiddens), B, T, 4 * hp) and dw.shape == (len(hiddens), hp, 4 * hp)
+    # exact f32 on both sides; dgates chains up to T steps, dW sums B*T
+    # terms in another order
+    assert (dg - dg_p).abs().max().item() <= 1e-4 * max(dg_p.abs().max().item(), 1.0)
+    assert (dw - dw_p).abs().max().item() <= 1e-4 * max(dw_p.abs().max().item(), 1.0)
+    for s, H in enumerate(hiddens):  # padded units get exactly 0
+        assert torch.all(dg[s].reshape(B, T, 4, hp)[..., H:] == 0.0)
+        assert torch.all(dw[s, H:] == 0.0)
+        assert torch.all(dw[s].reshape(hp, 4, hp)[..., H:] == 0.0)
+    # two runs agree bit for bit (no atomics)
+    dg2, dw2 = lstm_backward(dh, acts, c, h, w)
+    assert torch.equal(dg, dg2) and torch.equal(dw, dw2)
+
+
+def test_lstm_function_matches_autograd_of_plain(cuda_device):
+    """Kernels B and C as one autograd.Function against autograd through
+    the plain recurrence, on the card."""
+    g, w, dh = _packed_problem(np.random.default_rng(5), 2, 40, (16, 24), cuda_device)
+    g1, w1 = g.clone().requires_grad_(), w.clone().requires_grad_()
+    (LSTMRecurrence.apply(g1, w1) * dh).sum().backward()
+    g2, w2 = g.clone().requires_grad_(), w.clone().requires_grad_()
+    (lstm_recurrence_plain(g2, w2) * dh).sum().backward()
+    assert (g1.grad - g2.grad).abs().max().item() <= 1e-4 * g2.grad.abs().max().item()
+    assert (w1.grad - w2.grad).abs().max().item() <= 1e-4 * w2.grad.abs().max().item()
+
+
+def test_lstm_function_finite_differences(cuda_device):
+    """Central differences of sum(h * dh) in float32 at a tiny shape. f32
+    leaves about three digits at a step of 1e-2 (rounding of the loss
+    against truncation), so this holds the kernel to 2e-2 relative only;
+    the tight check is the one against the plain version above."""
+    g, w, dh = _packed_problem(np.random.default_rng(6), 1, 6, (4,), cuda_device)
+    g1, w1 = g.clone().requires_grad_(), w.clone().requires_grad_()
+    (LSTMRecurrence.apply(g1, w1) * dh).sum().backward()
+
+    def loss(gg, ww):
+        return (lstm_recurrence(gg, ww).double() * dh.double()).sum().item()
+
+    eps = 1e-2
+    for tensor, grad in ((g, g1.grad), (w, w1.grad)):
+        flat = tensor.reshape(-1)
+        for idx in range(0, flat.numel(), max(flat.numel() // 12, 1)):
+            old = flat[idx].item()
+            flat[idx] = old + eps
+            up = loss(g, w)
+            flat[idx] = old - eps
+            down = loss(g, w)
+            flat[idx] = old
+            fd = (up - down) / (2 * eps)
+            assert abs(fd - grad.reshape(-1)[idx].item()) <= 2e-2 * max(abs(fd), 1.0)
+
+
+def test_lstm_backward_rejects_bad_input(cuda_device):
+    g, w, dh = _packed_problem(np.random.default_rng(7), 1, 5, (8,), cuda_device)
+    h, c, acts = lstm_recurrence(g, w, save=True)
+    with pytest.raises(ValueError):
+        lstm_backward(dh.double(), acts, c, h, w)
+    with pytest.raises(ValueError):
+        lstm_backward(dh, acts[..., :-1], c, h, w)
+    with pytest.raises(ValueError):
+        lstm_backward(dh.transpose(1, 2), acts, c, h, w)
