@@ -17,22 +17,38 @@ Phases, each printing one JSON line:
              stage), kernel B (LSTM recurrence) in its serving form at the
              serving shapes and in its training form at the training shapes,
              kernel C (LSTM BPTT backward) at the training shapes.
+             (Kernel A on the iSTFTNet stages here; on HiFi-GAN's in 6.)
 4. main    — ``load_synthesizer(default_config())`` on CUDA, reference
              features of ``assets/vocoder/val/val_0000.wav``, a seeded
              unit-norm speaker embedding, and ``synthesize`` on 3 sentences;
              checks shapes, finiteness and that kernels A and B were launched.
    A profiled request follows (device time by kernel, idle share).
 5. card_vs_cpu — one request again with ``device="cpu"`` (plain versions);
-             durations and mels at f32 tolerance, waveforms by SNR (bf16).
-6. train   — writes a 64-utterance example dataset made from a seed to disk
+             durations and mels at f32 tolerance, waveforms by log-mel
+             distance (bf16), the f32 vocoder by SNR.
+6. hifigan_kernels — ``load_synthesizer(cfg, vocoder_arch="HiFi-GAN")``;
+             kernel A (bf16 and f32) and the int8 kernel against their plain
+             versions on the four HiFi-GAN stage inputs of the 2B batch of
+             1024-frame mels ([2, 8192, 256] .. [2, 262144, 32]), with times,
+             the cuDNN bf16 conv chain as yardstick and the bound.
+7. main_hifigan — 3 requests after a warm-up through HiFi-GAN; kernel A
+             launches 72 times per request, the int8 kernel never; then a
+             profiled request (profile_hifigan).
+8. int8    — the same requests with ``STYLER_TPU_INT8_VOCODER=1`` set before
+             construction: the int8 kernel 72 times per request, kernel A
+             never; a profiled request (profile_int8); log-mel MAE of the
+             int8 waveforms against the bf16 ones (fails only above 1.0 or on
+             a non-finite result).
+9. hifigan_card_vs_cpu — one HiFi-GAN request against ``device="cpu"``.
+10. train  — writes a 64-utterance example dataset made from a seed to disk
              and runs ``Trainer(...).fit`` on CUDA from the committed trained
              weights at full width, batch 16, dropout on: one warm-up step and
              three timed ones. Checks the 10 loss components, the gradient
              norm, that every parameter had a gradient and nearly all changed,
              that the BatchNorm statistics moved, and that kernel B's training
              form and kernel C were each launched 4 times per step.
-7. train_profile — one more step under ``torch.profiler``.
-8. train_card_vs_cpu — one step's loss components and every gradient leaf,
+11. train_profile — one more step under ``torch.profiler``.
+12. train_card_vs_cpu — one step's loss components and every gradient leaf,
              without dropout, on the card against ``device="cpu"``.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
@@ -56,8 +72,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # published dense peaks of one H100 SXM (NVIDIA data sheet)
 PEAK_BF16 = 989e12
+PEAK_INT8 = 1979e12  # dense int8 tensor-core operations per second
 PEAK_F32 = 67e12  # f32 outside the tensor cores (no TF32)
 HBM_BYTES_PER_S = 3.35e12
+# int8 kernel vs its plain version, bf16 output: 2 bf16 ulps of the scale
+INT8_TOL = 2 ** -7
 
 SENTENCES = (
     "Hello there.",
@@ -130,31 +149,52 @@ def resblock_library(torch, F, x, bp, kernel_sizes, dilations):
     return (total / len(bp)).transpose(1, 2)
 
 
-def phase_resblock(torch, synth_gen, mel2b):
-    """Kernel A vs plain on both iSTFTNet stages at the main path's shapes
-    and data (the stage inputs of a 2B batch of 1024-frame mels)."""
+def stage_inputs(torch, g, mel2b):
+    """The input of every resblock stage of generator ``g`` for the 2B mel
+    batch, as the main path produces it (kernel A runs the stages)."""
     import torch.nn.functional as F
 
-    from styler_tpu_torch.ops.resblock import fused_resblock_stage, resblock_stage_plain
+    from styler_tpu_torch.ops.resblock import fused_resblock_stage
 
-    g = synth_gen
     ks = tuple(g.config.resblock_kernel_sizes)
     dils = tuple(g.config.resblock_dilation_sizes[0])
-
-    # the stage inputs the main path produces for the 2B mel batch
+    out = []
     with torch.no_grad():
         x = g._conv(g.conv_pre, mel2b)
-        stage_in = []
-        for i in range(2):
+        for i in range(len(g.config.upsample_rates)):
             x = getattr(g, f"ups_{i}")(F.leaky_relu(x, 0.1)).contiguous()
-            stage_in.append(x)
+            out.append(x)
             blocks = [getattr(g, f"resblocks_{i}_{j}") for j in range(len(ks))]
             x = fused_resblock_stage(x, [b.branch_params() for b in blocks], ks, dils)
+    return out, ks, dils
 
-    rec_a = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0.0}
-    flops_a = bytes_a = 0.0
+
+def phase_resblock(torch, g, mel2b, path, int8=False):
+    """Kernel A (bf16 and f32) against its plain version on every stage of
+    generator ``g`` at the main path's shapes and data (the stage inputs of
+    a 2B batch of 1024-frame mels); with ``int8`` also the int8 kernel
+    against its plain version on the bf16 stage inputs. Returns the
+    per-request records of A (bf16) and of the int8 kernel (or None)."""
+    import torch.nn.functional as F
+
+    from styler_tpu_torch.ops.resblock import (
+        fused_resblock_stage,
+        quantize_branch_params,
+        resblock_stage_int8,
+        resblock_stage_int8_plain,
+        resblock_stage_plain,
+    )
+
+    stage_in, ks, dils = stage_inputs(torch, g, mel2b)
+    taps = 2 * len(dils) * sum(ks)  # per output element and input channel
+    rec_a = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0.0}
+    rec_q = dict(rec_a) if int8 else None
+    work = {"a": [0.0, 0.0], "q": [0.0, 0.0]}  # flops, bytes
     for i, x_bf in enumerate(stage_in):
         blocks = [getattr(g, f"resblocks_{i}_{j}") for j in range(len(ks))]
+        B, T, C = x_bf.shape
+        flops = 2.0 * B * T * C * C * taps
+        lib_bf16 = None
         for dtype, tol, peak in ((torch.bfloat16, 3e-2, PEAK_BF16), (torch.float32, 1e-4, PEAK_F32)):
             x_in = x_bf.to(dtype).contiguous()
             bp = [tuple(t.detach().to(dtype) if t.dim() == 4 else t.detach().float()
@@ -165,32 +205,64 @@ def phase_resblock(torch, synth_gen, mel2b):
                 want = resblock_stage_plain(x_in, bp, ks, dils)
                 err = (got.float() - want.float()).abs().max().item()
                 scale = want.float().abs().max().item()
-                check(bool(torch.isfinite(got).all()), f"resblock stage {i} {dtype}: non-finite output")
+                check(bool(torch.isfinite(got).all()), f"{path} resblock stage {i} {dtype}: non-finite output")
                 check(err <= tol * max(scale, 1.0),
-                      f"resblock stage {i} {dtype}: max |kernel - plain| {err} > {tol} x {scale}")
+                      f"{path} resblock stage {i} {dtype}: max |kernel - plain| {err} > {tol} x {scale}")
                 ms = cuda_ms(torch, lambda: fused_resblock_stage(x_in, bp, ks, dils), 5)
                 plain_ms = cuda_ms(torch, lambda: resblock_stage_plain(x_in, bp, ks, dils), 2)
                 bpc = [tuple(t.permute(0, 3, 2, 1).contiguous() if t.dim() == 4 else t.to(dtype)
                              for t in b) for b in bp]  # [n_dil, Cout, Cin, k] for F.conv1d
                 lib_ms = cuda_ms(torch, lambda: resblock_library(torch, F, x_in, bpc, ks, dils), 5)
-            B, T, C = x_in.shape
             esz = x_in.element_size()
-            flops = 2.0 * B * T * C * C * 2 * len(dils) * sum(ks)
-            n_bytes = 2 * B * T * C * esz + 2 * len(dils) * sum(ks) * C * C * esz + 2 * len(dils) * len(ks) * C * 4
+            n_bytes = 2 * B * T * C * esz + taps * C * C * esz + 2 * len(dils) * len(ks) * C * 4
             b_ms, b_by = bound(flops, peak, n_bytes)
-            emit("kernels", kernel="resblock_stage", stage=i, shape=[B, T, C], dtype=str(dtype),
-                 max_abs_err=err, out_scale=scale, tolerance=f"{tol} x max|plain|",
+            emit("kernels", kernel="resblock_stage", path=path, stage=i, shape=[B, T, C],
+                 dtype=str(dtype), max_abs_err=err, out_scale=scale, tolerance=f"{tol} x max|plain|",
                  ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
                  flops=flops, bytes=n_bytes, launches_per_request=2 * len(dils) * len(ks))
             if dtype == torch.bfloat16:  # the main path's dtype
-                rec_a["ms"] += ms
-                rec_a["plain_ms"] += plain_ms
-                rec_a["library_ms"] += lib_ms
+                lib_bf16 = lib_ms
+                for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms)):
+                    rec_a[k] += v
                 rec_a["max_abs_err"] = max(rec_a["max_abs_err"], err)
-                flops_a += flops
-                bytes_a += n_bytes
-    rec_a["bound_ms"], rec_a["bound_by"] = bound(flops_a, PEAK_BF16, bytes_a)
-    return rec_a
+                work["a"][0] += flops
+                work["a"][1] += n_bytes
+        if not int8:
+            continue
+        # the int8 kernel on the bf16 stage input, weights quantised once
+        x_in = x_bf.to(torch.bfloat16).contiguous()
+        q = quantize_branch_params([b.branch_params() for b in blocks])
+        with torch.no_grad():
+            got = resblock_stage_int8(x_in, q, ks, dils)
+            torch.cuda.synchronize()
+            want = resblock_stage_int8_plain(x_in, q, ks, dils)
+            err = (got.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            check(bool(torch.isfinite(got).all()), f"int8 stage {i}: non-finite output")
+            check(err <= INT8_TOL * max(scale, 1.0),
+                  f"int8 stage {i}: max |kernel - plain| {err} > {INT8_TOL} x {scale}")
+            ms = cuda_ms(torch, lambda: resblock_stage_int8(x_in, q, ks, dils), 5)
+            plain_ms = cuda_ms(torch, lambda: resblock_stage_int8_plain(x_in, q, ks, dils), 1)
+        n_bytes = 2 * B * T * C * 2 + taps * C * C + 2 * 2 * len(dils) * len(ks) * C * 4
+        b_ms, b_by = bound(flops, PEAK_INT8, n_bytes)
+        emit("kernels", kernel="resblock_stage_int8", path=path, stage=i, shape=[B, T, C],
+             dtype="int8 x int8 -> int32, bf16 in/out", max_abs_err=err, out_scale=scale,
+             tolerance=f"{INT8_TOL} x max|plain| (int32 sums exact; f32 epilogue rounding, "
+                       "one bf16 ulp of the output; a whole quantisation step would mean the "
+                       "two disagree on a tile's scale)",
+             ms=ms, plain_ms=plain_ms, library_ms=lib_bf16,
+             library="cuDNN conv chain in bf16 (no int8 convolution in PyTorch)",
+             bound_ms=b_ms, bound_by=b_by, ops=flops, bytes=n_bytes,
+             launches_per_request=2 * len(dils) * len(ks))
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_bf16)):
+            rec_q[k] += v
+        rec_q["max_abs_err"] = max(rec_q["max_abs_err"], err)
+        work["q"][0] += flops
+        work["q"][1] += n_bytes
+    rec_a["bound_ms"], rec_a["bound_by"] = bound(work["a"][0], PEAK_BF16, work["a"][1])
+    if int8:
+        rec_q["bound_ms"], rec_q["bound_by"] = bound(work["q"][0], PEAK_INT8, work["q"][1])
+    return rec_a, rec_q
 
 
 def phase_lstm(torch, model, cfg):
@@ -389,6 +461,139 @@ def phase_lstm_train(torch, model, cfg, batch_size):
              "library_ms": per_step * (lib_fb - lib_f), "bound_ms": per_step * bc_ms,
              "bound_by": bc_by, "max_abs_err": max(err_dg, err_dw)}
     return rec_b, rec_c
+
+
+def run_requests(torch, synth, ref, spk, cfg, phase, smi, counters):
+    """One warm-up request, then the 3 SENTENCES with wall times; checks
+    shapes and finiteness. Returns the outputs and the launches of each
+    counter during the 3 requests."""
+    import numpy as np
+
+    synth.synthesize(SENTENCES[0], ref, spk)
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    M = cfg.mel_buckets[-1]
+    outs = []
+    for s in SENTENCES:
+        t0 = time.perf_counter()
+        out = synth.synthesize(s, ref, spk)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        ml = out["mel_len"]
+        check(0 < ml <= M, f"{phase}: mel_len {ml}")
+        check(out["mel"].shape == (ml, cfg.n_mel_channels) and out["mel_noisy"].shape == out["mel"].shape,
+              f"{phase}: mel shape")
+        check(out["wav"].shape == (ml * cfg.hop_length,) == out["wav_noisy"].shape, f"{phase}: wav shape")
+        for k in ("mel", "mel_noisy", "wav", "wav_noisy", "f0", "energy", "duration"):
+            check(bool(np.isfinite(out[k]).all()), f"{phase}: non-finite {k}")
+        outs.append(out)
+        emit(phase, sentence=s, phonemes=int((~out["src_mask"][0]).sum()), mel_len=ml,
+             wall_ms=wall_ms, card=smi)
+    return outs, {name: fn.launches for name, fn in counters.items()}
+
+
+def card_vs_cpu(torch, synth, cpu, g, ref, spk, phase) -> None:
+    """The request of SENTENCES[0] on the card (``g``, from ``synth``)
+    against the same request on ``cpu``, a Synthesizer with
+    ``device="cpu"`` (the kernels' plain versions)."""
+    import numpy as np
+
+    c = cpu.synthesize(SENTENCES[0], ref, spk)
+    check(c["mel_len"] == g["mel_len"], f"{phase}: mel_len card {g['mel_len']} vs cpu {c['mel_len']}")
+    res = {}
+    # f32 acoustic model, TF32 off: sums in another order only
+    for k, tol in (("duration", 1e-4), ("mel", 1e-3), ("mel_noisy", 1e-3)):
+        scale = max(float(np.abs(c[k]).max()), 1.0)
+        err = float(np.abs(g[k] - c[k]).max())
+        res[k] = {"max_abs_err": err, "tolerance": tol * scale}
+        check(err <= tol * scale, f"{phase} {k}: {err} > {tol} x {scale}")
+    # bf16 vocoder: one bf16 rounding flip of an early conv moves samples a
+    # lot (iSTFTNet emits its phase in bf16), so sample SNR is fragile (bf16
+    # vs f32 of the same path measures 5 to 17 dB); hold the log-mels of
+    # the waveforms instead (bf16 vs f32 measures 0.03 to 0.06, natural log)
+    for k in ("wav", "wav_noisy"):
+        c64 = c[k].astype(np.float64)
+        snr = float(10 * np.log10((c64 ** 2).sum() / max(((g[k] - c64) ** 2).sum(), 1e-30)))
+        mae = float(np.abs(cpu.frontend(g[k])[0] - cpu.frontend(c[k])[0]).mean())
+        res[k] = {"log_mel_mae": mae, "tolerance": 0.1, "snr_db": snr}
+        check(mae < 0.1, f"{phase} {k}: log-mel MAE {mae}")
+    # the vocoder in f32 on one mel batch: kernel A's f32 mode against the
+    # plain version end to end, exact f32 on both sides
+    mel_in = torch.from_numpy(np.stack([c["mel"], c["mel_noisy"]]))
+    for s_ in (synth, cpu):
+        s_.generator.compute_dtype = torch.float32
+    with torch.no_grad():
+        w_card = synth.generator(mel_in.cuda()).cpu().numpy().astype(np.float64)
+        w_cpu = cpu.generator(mel_in).numpy().astype(np.float64)
+    snr = float(10 * np.log10((w_cpu ** 2).sum() / max(((w_card - w_cpu) ** 2).sum(), 1e-30)))
+    res["wav_f32_vocoder"] = {"snr_db": snr, "min_snr_db": 50.0}
+    check(snr > 50.0, f"{phase} f32 vocoder: SNR {snr} dB")
+    emit(phase, sentence=SENTENCES[0], **res)
+
+
+def phase_hifigan(torch, cfg, mel2b, ref, spk, smi):
+    """The HiFi-GAN serving path: kernel A and its int8 form against their
+    plain versions on the four stages (hifigan_kernels); 3 requests through
+    kernel A (main_hifigan); the same requests through the int8 kernel with
+    STYLER_TPU_INT8_VOCODER=1 (int8); one request card vs CPU
+    (hifigan_card_vs_cpu). Returns the kernel records and launch counts."""
+    import numpy as np
+
+    from styler_tpu_torch.ops.lstm import lstm_recurrence
+    from styler_tpu_torch.ops.resblock import fused_resblock_stage, resblock_stage_int8
+    from styler_tpu_torch.synthesis import load_synthesizer
+
+    counters = {"resblock_stage": fused_resblock_stage, "resblock_stage_int8": resblock_stage_int8,
+                "lstm_recurrence": lstm_recurrence}
+    per_request = 4 * 18  # 4 stages x 3 branches x 3 dilations x 2 convs
+
+    t0 = time.perf_counter()
+    synth = load_synthesizer(cfg, vocoder_arch="HiFi-GAN")
+    check(synth.config.vocoder == "HiFi-GAN" and not synth.generator.quantize, "not the HiFi-GAN path")
+    emit("load_hifigan", seconds=time.perf_counter() - t0, device=str(synth.device))
+    rec_a, rec_q = phase_resblock(torch, synth.generator, mel2b, "HiFi-GAN", int8=True)
+
+    outs, launches = run_requests(torch, synth, ref, spk, cfg, "main_hifigan", smi, counters)
+    emit("main_hifigan_launches", **launches)
+    check(launches["resblock_stage"] == per_request * len(SENTENCES)
+          and launches["resblock_stage_int8"] == 0,
+          f"HiFi-GAN path: kernel A launched {launches['resblock_stage']} times, the int8 kernel "
+          f"{launches['resblock_stage_int8']} (expected {per_request} and 0 per request)")
+    phase_profile(torch, synth, SENTENCES[-1], ref, spk, "profile_hifigan")
+
+    os.environ["STYLER_TPU_INT8_VOCODER"] = "1"
+    try:
+        t0 = time.perf_counter()
+        synth_q = load_synthesizer(cfg, vocoder_arch="HiFi-GAN")
+    finally:
+        del os.environ["STYLER_TPU_INT8_VOCODER"]
+    check(synth_q.generator.quantize, "STYLER_TPU_INT8_VOCODER=1 did not select the int8 form")
+    emit("load_int8", seconds=time.perf_counter() - t0)
+    outs_q, launches_q = run_requests(torch, synth_q, ref, spk, cfg, "int8", smi, counters)
+    emit("int8_launches", **launches_q)
+    check(launches_q["resblock_stage_int8"] == per_request * len(SENTENCES)
+          and launches_q["resblock_stage"] == 0,
+          f"int8 path: int8 kernel launched {launches_q['resblock_stage_int8']} times, kernel A "
+          f"{launches_q['resblock_stage']} (expected {per_request} and 0 per request)")
+    phase_profile(torch, synth_q, SENTENCES[-1], ref, spk, "profile_int8")
+    # quality of the int8 vocoder against the bf16 one: fail only on a
+    # non-finite result (checked above) or a log-mel MAE above 1.0; the JAX
+    # package's own measurement on the trained weights was about 0.37
+    maes = []
+    for o, oq in zip(outs, outs_q):
+        for k in ("wav", "wav_noisy"):
+            maes.append(float(np.abs(synth.frontend(oq[k])[0] - synth.frontend(o[k])[0]).mean()))
+    emit("int8_quality", log_mel_mae_vs_bf16=maes, mean=sum(maes) / len(maes), fail_above=1.0)
+    check(max(maes) <= 1.0, f"int8 vocoder log-mel MAE vs bf16 {max(maes)} > 1.0")
+    del synth_q
+    torch.cuda.empty_cache()
+
+    card_vs_cpu(torch, synth, load_synthesizer(cfg, vocoder_arch="HiFi-GAN", device="cpu"),
+                outs[0], ref, spk, "hifigan_card_vs_cpu")
+    del synth
+    torch.cuda.empty_cache()
+    return rec_a, rec_q, launches, launches_q
 
 
 def profile_rows(torch, prof):
@@ -599,7 +804,7 @@ def phase_train_card_vs_cpu(torch, cfg) -> None:
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
 
 
-def phase_profile(torch, synth, sentence, ref, spk) -> None:
+def phase_profile(torch, synth, sentence, ref, spk, phase="profile") -> None:
     """Where one request's time goes: torch.profiler's device time by
     kernel, and the device's busy share of the request's wall time."""
     from torch.profiler import ProfilerActivity, profile
@@ -613,7 +818,7 @@ def phase_profile(torch, synth, sentence, ref, spk) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows, host = profile_rows(torch, prof)
-    emit_profile("profile", rows, host, wall_ms, sentence=sentence, text_to_ids_ms=text_ms)
+    emit_profile(phase, rows, host, wall_ms, sentence=sentence, text_to_ids_ms=text_ms)
 
 
 def main() -> int:
@@ -630,7 +835,7 @@ def main() -> int:
     from styler_tpu_torch.data.audio_io import read_wav_int
     from styler_tpu_torch.ops import build
     from styler_tpu_torch.ops.lstm import lstm_backward, lstm_recurrence
-    from styler_tpu_torch.ops.resblock import fused_resblock_stage
+    from styler_tpu_torch.ops.resblock import fused_resblock_stage, resblock_stage_int8
     from styler_tpu_torch.synthesis import extract_reference_features, load_synthesizer
 
     # 1. device
@@ -660,7 +865,7 @@ def main() -> int:
     M = cfg.mel_buckets[-1]
     val = np.load(os.path.join(ROOT, "assets", "vocoder", "val_mel.npy")).astype(np.float32)
     mel2b = torch.from_numpy(np.stack([np.resize(val, (M, 80)), np.resize(val[::-1], (M, 80))])).cuda()
-    rec_a = phase_resblock(torch, synth.generator, mel2b)
+    rec_a, _ = phase_resblock(torch, synth.generator, mel2b, "iSTFTNet")
     rec_b = phase_lstm(torch, synth.model, cfg)
     rec_b_train, rec_c = phase_lstm_train(torch, synth.model, cfg, cfg.batch_size)
 
@@ -670,72 +875,26 @@ def main() -> int:
     ref = extract_reference_features(wav.astype(np.float32), cfg, synth.frontend)
     spk = np.random.default_rng(0).standard_normal(cfg.speaker_embed_dim).astype(np.float32)
     spk /= np.linalg.norm(spk)
-    synth.synthesize(SENTENCES[0], ref, spk)
-    torch.cuda.synchronize()
-    fused_resblock_stage.launches = 0
-    lstm_recurrence.launches = lstm_recurrence.training_launches = lstm_backward.launches = 0
-    outs = []
-    for s in SENTENCES:
-        t0 = time.perf_counter()
-        out = synth.synthesize(s, ref, spk)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        ml = out["mel_len"]
-        check(0 < ml <= M, f"mel_len {ml}")
-        check(out["mel"].shape == (ml, cfg.n_mel_channels) and out["mel_noisy"].shape == out["mel"].shape,
-              "mel shape")
-        check(out["wav"].shape == (ml * cfg.hop_length,) == out["wav_noisy"].shape, "wav shape")
-        for k in ("mel", "mel_noisy", "wav", "wav_noisy", "f0", "energy", "duration"):
-            check(bool(np.isfinite(out[k]).all()), f"non-finite {k}")
-        outs.append(out)
-        emit("main", sentence=s, phonemes=int((~out["src_mask"][0]).sum()), mel_len=ml,
-             wall_ms=wall_ms, card=smi)
-    launches = {"resblock_stage": fused_resblock_stage.launches,
-                "lstm_recurrence": lstm_recurrence.launches}
+    lstm_recurrence.training_launches = 0
+    outs, launches = run_requests(torch, synth, ref, spk, cfg, "main", smi, {
+        "resblock_stage": fused_resblock_stage, "lstm_recurrence": lstm_recurrence,
+        "resblock_stage_int8": resblock_stage_int8, "lstm_backward": lstm_backward})
     emit("main_launches", **launches)
-    check(all(n > 0 for n in launches.values()), f"a kernel of the main path never launched: {launches}")
-    check(lstm_recurrence.training_launches == 0 and lstm_backward.launches == 0,
-          "serving launched a training kernel")
+    check(launches["resblock_stage"] > 0 and launches["lstm_recurrence"] > 0,
+          f"a kernel of the main path never launched: {launches}")
+    check(lstm_recurrence.training_launches == 0 and launches["lstm_backward"] == 0
+          and launches["resblock_stage_int8"] == 0, "serving launched a training or an int8 kernel")
     phase_profile(torch, synth, SENTENCES[-1], ref, spk)
 
     # 5. card vs CPU on the first request
-    cpu = load_synthesizer(cfg, device="cpu")
-    c = cpu.synthesize(SENTENCES[0], ref, spk)
-    g = outs[0]
-    check(c["mel_len"] == g["mel_len"], f"mel_len card {g['mel_len']} vs cpu {c['mel_len']}")
-    res = {}
-    # f32 acoustic model, TF32 off: sums in another order only
-    for k, tol in (("duration", 1e-4), ("mel", 1e-3), ("mel_noisy", 1e-3)):
-        scale = max(float(np.abs(c[k]).max()), 1.0)
-        err = float(np.abs(g[k] - c[k]).max())
-        res[k] = {"max_abs_err": err, "tolerance": tol * scale}
-        check(err <= tol * max(scale, 1.0), f"card vs cpu {k}: {err} > {tol} x {scale}")
-    # bf16 vocoder: conv_post emits the iSTFT phase in bf16, so one bf16
-    # rounding flip moves samples a lot and sample SNR is fragile (bf16 vs
-    # f32 of the same path measures 5 to 17 dB); hold the log-mels of the
-    # waveforms instead (bf16 vs f32 measures 0.03 to 0.06, natural log)
-    for k in ("wav", "wav_noisy"):
-        c64 = c[k].astype(np.float64)
-        snr = float(10 * np.log10((c64 ** 2).sum() / max(((g[k] - c64) ** 2).sum(), 1e-30)))
-        mae = float(np.abs(cpu.frontend(g[k])[0] - cpu.frontend(c[k])[0]).mean())
-        res[k] = {"log_mel_mae": mae, "tolerance": 0.1, "snr_db": snr}
-        check(mae < 0.1, f"card vs cpu {k}: log-mel MAE {mae}")
-    # the vocoder in f32 on one mel batch: kernel A's f32 mode against the
-    # plain version end to end, exact f32 on both sides
-    mel_in = torch.from_numpy(np.stack([c["mel"], c["mel_noisy"]]))
-    for s_ in (synth, cpu):
-        s_.generator.compute_dtype = torch.float32
-    with torch.no_grad():
-        w_card = synth.generator(mel_in.cuda()).cpu().numpy().astype(np.float64)
-        w_cpu = cpu.generator(mel_in).numpy().astype(np.float64)
-    snr = float(10 * np.log10((w_cpu ** 2).sum() / max(((w_card - w_cpu) ** 2).sum(), 1e-30)))
-    res["wav_f32_vocoder"] = {"snr_db": snr, "min_snr_db": 50.0}
-    check(snr > 50.0, f"card vs cpu f32 vocoder: SNR {snr} dB")
-    emit("card_vs_cpu", sentence=SENTENCES[0], **res)
-    del cpu, synth
+    card_vs_cpu(torch, synth, load_synthesizer(cfg, device="cpu"), outs[0], ref, spk, "card_vs_cpu")
+    del synth
     torch.cuda.empty_cache()
 
-    # 6-8. the training main path
+    # 6-9. the HiFi-GAN serving path, exact and int8
+    rec_h, rec_q, launches_h, launches_q = phase_hifigan(torch, cfg, mel2b, ref, spk, smi)
+
+    # 10-12. the training main path
     workdir = tempfile.mkdtemp(prefix="smoke-train-", dir=os.path.join(ROOT, "styler_tpu_torch", "_build"))
     try:
         trainer, train_launches = phase_train(torch, cfg, smi, workdir)
@@ -752,7 +911,14 @@ def main() -> int:
          "replaces": "styler_tpu/ops/pallas_resblock.py:311",
          "launches": launches["resblock_stage"], "max_abs_err": rec_a["max_abs_err"],
          "ms": rec_a["ms"], "plain_ms": rec_a["plain_ms"], "bound_ms": rec_a["bound_ms"],
-         "bound_by": rec_a["bound_by"], "library_ms": rec_a["library_ms"]},
+         "bound_by": rec_a["bound_by"], "library_ms": rec_a["library_ms"],
+         # the same kernel on the HiFi-GAN path (4 stages, C = 256..32), per request
+         "hifigan": {"launches": launches_h["resblock_stage"], **rec_h}},
+        {"name": "resblock_stage_int8", **common, "source": "styler_tpu_torch/csrc/resblock_int8.cu",
+         "replaces": "styler_tpu/ops/pallas_resblock.py:311 (quantize=True)",
+         "launches": launches_q["resblock_stage_int8"], "max_abs_err": rec_q["max_abs_err"],
+         "ms": rec_q["ms"], "plain_ms": rec_q["plain_ms"], "bound_ms": rec_q["bound_ms"],
+         "bound_by": rec_q["bound_by"], "library_ms": rec_q["library_ms"]},
         {"name": "lstm_recurrence", **common, "source": "styler_tpu_torch/csrc/lstm.cu",
          "replaces": "styler_tpu/ops/pallas_lstm.py:76",
          "launches": launches["lstm_recurrence"], "max_abs_err": rec_b["max_abs_err"],

@@ -20,7 +20,7 @@ from typing import Dict, Iterable, Optional
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-KERNELS = ("resblock", "lstm", "lstm_bwd")
+KERNELS = ("resblock", "resblock_int8", "lstm", "lstm_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

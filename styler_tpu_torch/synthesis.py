@@ -1,20 +1,22 @@
 """Synthesis engine: text + reference audio -> mels and waveforms
 (counterpart of ``styler_tpu/synthesis.py``: ``ReferenceFeatures``,
-``extract_reference_features``, ``Synthesizer.synthesize`` and the default
+``extract_reference_features``, ``Synthesizer.synthesize`` and the weight
 resolution of ``load_synthesizer``).
 
 One request: text -> phoneme ids on the host; the STYLER eval forward
 (text encoder, audio encoder with the BiLSTM recurrences in kernel B,
-predictors, length regulator, one 2B decode + PostNet); one 2B iSTFTNet
-pass over the clean and noisy mels, whose resblock stages run kernel A.
-The reference mel axis pads to its bucket; the output mel axis is always
-the largest mel bucket.
+predictors, length regulator, one 2B decode + PostNet); one 2B vocoder
+pass over the clean and noisy mels, HiFi-GAN or iSTFTNet, whose resblock
+stages run kernel A (HiFi-GAN: its int8 form with
+``STYLER_TPU_INT8_VOCODER=1``). The reference mel axis pads to its bucket;
+the output mel axis is always the largest mel bucket.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 from typing import Dict, Optional
 
 import numpy as np
@@ -27,14 +29,15 @@ from styler_tpu_torch.core.checkpoint import (
     load_vocoder_npz,
 )
 from styler_tpu_torch.core.config import Config, bucket_for
-from styler_tpu_torch.core.convert import load_flax_tree
+from styler_tpu_torch.core.convert import load_flax_tree, to_flax_tree
 from styler_tpu_torch.core.device import resolve_device
+from styler_tpu_torch.core.import_torch import load_reference_vocoder
 from styler_tpu_torch.dsp.features import energy_rescaling_np, f0_normalization_np
 from styler_tpu_torch.dsp.mel import MelFrontend
 from styler_tpu_torch.dsp.pitch import get_f0, get_f0_noisy
 from styler_tpu_torch.models import STYLER
 from styler_tpu_torch.textproc import G2p, text_to_sequence, to_phoneme_string
-from styler_tpu_torch.vocoder.istft_net import ISTFTNetGenerator
+from styler_tpu_torch.vocoder import make_generator
 
 _log = logging.getLogger("styler_tpu_torch.synthesis")
 
@@ -83,24 +86,25 @@ def extract_reference_features(
 
 
 class Synthesizer:
-    """The STYLER acoustic model and the iSTFTNet vocoder on one device
-    (CUDA unless ``device="cpu"``)."""
+    """The STYLER acoustic model and a HiFi-GAN or iSTFTNet vocoder
+    (``config.vocoder``) on one device (CUDA unless ``device="cpu"``).
+
+    ``STYLER_TPU_INT8_VOCODER=1``, read once here as the JAX package does,
+    runs HiFi-GAN's resblock stages in kernel A's int8 form (approximate;
+    ignored for iSTFTNet)."""
 
     def __init__(self, config: Config, params: dict, batch_stats: dict,
                  vocoder_params: dict, device=None):
-        if config.vocoder != "iSTFTNet":
-            raise NotImplementedError(
-                f"vocoder {config.vocoder!r}: the port runs iSTFTNet only; the "
-                "HiFi-GAN generator is a later slice (ROADMAP.md)"
-            )
         self.config = config
         self.device = resolve_device(device)
+        self.int8_vocoder = os.environ.get("STYLER_TPU_INT8_VOCODER", "0") == "1"
+        self.generator = make_generator(config.vocoder, torch.bfloat16,
+                                        quantize=self.int8_vocoder)
+        load_flax_tree(self.generator, vocoder_params)
+        self.generator.to(self.device).eval()
         self.model = STYLER(config)
         load_flax_tree(self.model, params, batch_stats)
         self.model.to(self.device).eval()
-        self.generator = ISTFTNetGenerator(compute_dtype=torch.bfloat16)
-        load_flax_tree(self.generator, vocoder_params)
-        self.generator.to(self.device).eval()
         self.frontend = MelFrontend(config, self.device)
         self.g2p = G2p()
 
@@ -199,24 +203,53 @@ class Synthesizer:
         }
 
 
+def _random_vocoder(config: Config) -> dict:
+    """Flax-style params of a generator drawn from an explicit seeded
+    ``torch.Generator``: N(0, 0.01) kernels, zero biases (the JAX package's
+    ``ConvTranspose1dTorch`` init; its ``nn.Conv`` leaves use lecun-normal
+    from a ``jax.random`` key, which no torch generator reproduces, so the
+    weights differ from the JAX package's ``"random"`` ones either way)."""
+    gen = torch.Generator().manual_seed(config.seed)
+    module = make_generator(config.vocoder)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if name.endswith(("b1", "b2", "bias")):
+                p.zero_()
+            else:
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.01)
+    return to_flax_tree(module)[0]
+
+
 def load_synthesizer(
     config: Config,
     ckpt_path: Optional[str] = None,
     vocoder_path: Optional[str] = None,
+    vocoder_arch: Optional[str] = None,
     device=None,
 ) -> Synthesizer:
     """Build a Synthesizer on ``device`` (CUDA unless ``device="cpu"``;
-    with no CUDA device and no device given this raises).
+    with no CUDA device and no device given this raises, with no CPU
+    fallback).
 
-    ``ckpt_path=None`` loads the committed trained acoustic asset
+    Acoustic weights: ``ckpt_path=None`` loads the committed trained asset
     (``assets/acoustic/styler_gen.npz``); an explicit ``.npz`` path loads
-    that asset file. ``vocoder_path=None`` promotes the vocoder to the
-    committed trained iSTFTNet (``assets/vocoder/istft_gen.npz``), as the
-    reference does when serving its own weights; an explicit ``.npz``
-    loads that file for ``config.vocoder``, which must be iSTFTNet.
-    Reference ``.pth.tar`` checkpoints, orbax directories, ``"random"``
-    weights and the HiFi-GAN vocoder are later slices and raise
+    that asset file. Reference ``.pth.tar`` checkpoints, orbax directories
+    and ``"random"`` acoustic weights are a later slice and raise
     ``NotImplementedError``.
+
+    Vocoder (resolution rules 1-3 of the JAX ``load_synthesizer``), for
+    ``vocoder_arch`` if given, else ``config.vocoder``:
+
+    1. an explicit ``vocoder_path``: a ``.npz`` asset loads for either
+       arch; a reference ``.pth.tar`` loads for HiFi-GAN
+       (``core/import_torch.py``, weight norm folded); an orbax directory
+       is a later slice;
+    2. no path: the committed trained asset of the arch; with neither a
+       path nor an arch given, the arch is promoted to the trained
+       iSTFTNet, as the JAX package does when it serves its own weights;
+    3. ``vocoder_path="random"``: a generator drawn from a seeded
+       ``torch.Generator`` (``config.seed``). It cannot equal flax's
+       random init, which draws from a ``jax.random`` key.
     """
     device = resolve_device(device)
     later = "is a later slice of the port (ROADMAP.md, Queue 1)"
@@ -229,12 +262,23 @@ def load_synthesizer(
                                   f"reference/orbax/random weights {later}")
     params, batch_stats = load_acoustic_npz(ckpt_path)
 
-    if vocoder_path is None:
+    if vocoder_arch:
+        config = config.replace(vocoder=vocoder_arch)
+    elif vocoder_path is None:
         config = config.replace(vocoder="iSTFTNet")
-        vocoder_path = default_vocoder_asset("iSTFTNet")
-        if vocoder_path is None:
-            raise FileNotFoundError("assets/vocoder/istft_gen.npz is missing")
-    elif not vocoder_path.endswith(".npz"):
-        raise NotImplementedError(f"vocoder checkpoint {vocoder_path!r}: only .npz assets load; "
-                                  f"other formats {later}")
-    return Synthesizer(config, params, batch_stats, load_vocoder_npz(vocoder_path), device)
+    if vocoder_path == "random":
+        vocoder_params = _random_vocoder(config)
+    elif vocoder_path is None:
+        asset = default_vocoder_asset(config.vocoder)
+        if asset is None:
+            raise FileNotFoundError(f"no committed trained {config.vocoder} asset in assets/vocoder/")
+        vocoder_params = load_vocoder_npz(asset)
+    elif not os.path.exists(vocoder_path):
+        raise FileNotFoundError(f"vocoder checkpoint: {vocoder_path}")
+    elif os.path.isdir(vocoder_path):
+        raise NotImplementedError(f"vocoder checkpoint {vocoder_path!r}: an orbax directory {later}")
+    elif vocoder_path.endswith(".npz"):
+        vocoder_params = load_vocoder_npz(vocoder_path)
+    else:
+        vocoder_params = load_reference_vocoder(vocoder_path, config.vocoder)
+    return Synthesizer(config, params, batch_stats, vocoder_params, device)

@@ -6,6 +6,7 @@ import torch
 
 from styler_tpu_torch.core.device import resolve_device
 from styler_tpu_torch.ops import build
+from tests.test_torch_golden_cache import torch_threads  # noqa: F401 (autouse)
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):

@@ -15,6 +15,7 @@ from styler_tpu_torch.core.convert import load_flax_tree
 from styler_tpu_torch.models import STYLER
 from styler_tpu_torch.vocoder.hifigan import ConvTranspose1dTorch
 from styler_tpu_torch.vocoder.istft_net import ISTFTNetGenerator
+from tests.test_torch_golden_cache import torch_threads  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -22,7 +22,13 @@ from styler_tpu_torch.ops.lstm import (
     pack_gates,
     pack_w_hh,
 )
-from styler_tpu_torch.ops.resblock import fused_resblock_stage, resblock_stage_plain
+from styler_tpu_torch.ops.resblock import (
+    fused_resblock_stage,
+    quantize_branch_params,
+    resblock_stage_int8,
+    resblock_stage_int8_plain,
+    resblock_stage_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -103,6 +109,74 @@ def test_resblock_kernel_rejects_bad_input(cuda_device):
         fused_resblock_stage(
             torch.zeros(1, 16, 6, device=cuda_device, dtype=torch.bfloat16), bp6, (3,), (1,)
         )
+
+
+# int8: both pick the same integers (same f32 scales, round half to even)
+# and sum them exactly; the f32 epilogue repeats the same roundings, so an
+# f32 output agrees to f32 rounding. A bf16 output may round one f32 ulp
+# apart to the other bf16 neighbour: 2 bf16 ulps (2^-7) of the scale.
+INT8_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
+
+
+@pytest.mark.parametrize(
+    "dtype,B,T,C",
+    [
+        (torch.bfloat16, 2, 1024, 256),
+        (torch.bfloat16, 2, 2048, 128),
+        (torch.bfloat16, 1, 4096, 64),
+        (torch.bfloat16, 2, 8192, 32),
+        (torch.float32, 1, 1000, 256),
+        (torch.float32, 3, 333, 32),  # ragged T: a partial last tile
+        (torch.float32, 1, 77, 48),
+    ],
+)
+def test_int8_kernel_matches_plain(cuda_device, dtype, B, T, C):
+    rng = np.random.default_rng(C)
+    ks, dils = (3, 7, 11), (1, 3, 5)
+    q = quantize_branch_params(_branch_params(rng, ks, len(dils), C, cuda_device))
+    x = torch.from_numpy(rng.standard_normal((B, T, C)).astype(np.float32)).to(cuda_device, dtype)
+    before = (resblock_stage_int8.launches, fused_resblock_stage.launches)
+    got = fused_resblock_stage(x, q, ks, dils, quantize=True)
+    torch.cuda.synchronize()
+    assert resblock_stage_int8.launches - before[0] == 18
+    assert fused_resblock_stage.launches == before[1]
+    want = resblock_stage_int8_plain(x, q, ks, dils)
+    assert got.dtype == dtype and got.shape == x.shape and torch.isfinite(got).all()
+    scale = want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= INT8_TOL[dtype] * max(scale, 1.0), (err, scale)
+
+
+def test_int8_kernel_is_deterministic(cuda_device):
+    rng = np.random.default_rng(7)
+    q = quantize_branch_params(_branch_params(rng, (3, 7, 11), 3, 64, cuda_device))
+    x = torch.from_numpy(rng.standard_normal((2, 3000, 64)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    a = resblock_stage_int8(x, q)
+    b = resblock_stage_int8(x, q)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_int8_kernel_rejects_bad_input(cuda_device):
+    rng = np.random.default_rng(8)
+    q = quantize_branch_params(_branch_params(rng, (3,), 1, 16, cuda_device))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        resblock_stage_int8(torch.zeros(1, 16, 16, device=cuda_device, dtype=torch.float16),
+                            q, (3,), (1,))
+    with pytest.raises(ValueError, match="contiguous"):
+        resblock_stage_int8(torch.zeros(1, 16, 16, device=cuda_device).transpose(1, 2), q, (3,), (1,))
+    q8 = quantize_branch_params(_branch_params(rng, (3,), 1, 8, cuda_device))
+    with pytest.raises(ValueError, match="C % 16"):
+        resblock_stage_int8(torch.zeros(1, 16, 8, device=cuda_device), q8, (3,), (1,))
+    with pytest.raises(ValueError, match=r"int8 \[n_dil, k, C, C\]"):
+        resblock_stage_int8(torch.zeros(1, 16, 16, device=cuda_device), q, (5,), (1,))
+    with pytest.raises(TypeError, match="Int8Branch"):
+        resblock_stage_int8(torch.zeros(1, 16, 16, device=cuda_device),
+                            _branch_params(rng, (3,), 1, 16, cuda_device), (3,), (1,))
+    with pytest.raises(ValueError, match="contiguous on"):
+        resblock_stage_int8(torch.zeros(1, 16, 16, device=cuda_device),
+                            quantize_branch_params(_branch_params(rng, (3,), 1, 16, "cpu")), (3,), (1,))
 
 
 @pytest.mark.parametrize("B,T,hiddens", [(1, 256, (80, 64, 64, 64)), (3, 33, (8, 80))])

@@ -12,6 +12,7 @@ from styler_tpu.data import dataset as j_data
 from styler_tpu_torch.core.config import default_config
 from styler_tpu_torch.data import dataset as t_data
 from styler_tpu_torch.train.example import example_batch, write_example_dataset
+from tests.test_torch_golden_cache import torch_threads  # noqa: F401 (autouse)
 
 N, BS = 11, 2
 BATCH_KEYS = {

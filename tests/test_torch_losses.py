@@ -14,6 +14,7 @@ from styler_tpu.ops.grl import gradient_reversal as j_grl
 from styler_tpu.train import losses as j_losses
 from styler_tpu_torch.ops.grl import gradient_reversal
 from styler_tpu_torch.train import losses as t_losses
+from tests.test_torch_golden_cache import torch_threads  # noqa: F401 (autouse)
 
 T = torch.from_numpy
 B, L, M, C = 3, 7, 20, 80

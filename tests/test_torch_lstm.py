@@ -17,6 +17,7 @@ from styler_tpu.ops.pallas_lstm import lstm_recurrence_pallas
 from styler_tpu.ops.recurrent import _lstm_scan, fused_bilstm_branches as j_fused
 from styler_tpu_torch.ops.lstm import lstm_recurrence, pack_gates, pack_w_hh
 from styler_tpu_torch.ops.recurrent import fused_bilstm_branches as t_fused
+from tests.test_torch_golden_cache import torch_threads  # noqa: F401 (autouse)
 
 T = torch.from_numpy
 

@@ -25,6 +25,7 @@ from styler_tpu_torch.ops.lstm import (
     pack_w_hh,
 )
 from styler_tpu_torch.ops.recurrent import flip_padded, fused_bilstm_branches as t_fused
+from tests.test_torch_golden_cache import golden, torch_threads  # noqa: F401 (autouse)
 
 T = torch.from_numpy
 SHAPES = [(2, 12, 8, 8), (2, 9, 16, 24), (3, 33, 80, 96)]
@@ -140,18 +141,18 @@ def _branch_params(rng, in_dims, hiddens, n_layers=2):
     return out
 
 
-@pytest.fixture(scope="module")
-def fused_grads():
-    """Gradients of sum(out * cotangent) over the four bottleneck BiLSTMs
-    (H = 80/64/64/64, two layers, ragged lengths incl. 1) w.r.t. every
-    input and parameter, on both sides."""
+def _fused_problem():
     rng = np.random.default_rng(31)
     in_dims, hiddens = (32, 40, 40, 32), (80, 64, 64, 64)
     B, T_ = 3, 24
-    lengths = np.asarray([24, 9, 1])
     params = _branch_params(rng, in_dims, hiddens)
     xs = [rng.standard_normal((B, T_, In)).astype(np.float32) for In in in_dims]
     cots = [rng.standard_normal((B, T_, 2 * H)).astype(np.float32) for H in hiddens]
+    return params, xs, cots, np.asarray([24, 9, 1])
+
+
+def _fused_jax_grads():
+    params, xs, cots, lengths = _fused_problem()
 
     def j_loss(p, x):
         outs = j_fused(p, x, jnp.asarray(lengths))
@@ -160,12 +161,22 @@ def fused_grads():
     jp, jx = jax.grad(j_loss, argnums=(0, 1))(
         jax.tree_util.tree_map(jnp.asarray, params), [jnp.asarray(x) for x in xs]
     )
+    return jax.tree_util.tree_map(np.asarray, (jp, list(jx)))
+
+
+@pytest.fixture(scope="module")
+def fused_grads(tmp_path_factory):
+    """Gradients of sum(out * cotangent) over the four bottleneck BiLSTMs
+    (H = 80/64/64/64, two layers, ragged lengths incl. 1) w.r.t. every
+    input and parameter, on both sides."""
+    params, xs, cots, lengths = _fused_problem()
+    jp, jx = golden(tmp_path_factory, "lstm_fused_grads", _fused_jax_grads)
     tp = [[{d: {k: T(v).requires_grad_() for k, v in lp[d].items()} for d in lp} for lp in p]
           for p in params]
     tx = [T(x).requires_grad_() for x in xs]
     outs = t_fused(tp, tx, T(lengths))
     sum((o * T(c)).sum() for o, c in zip(outs, cots)).backward()
-    return jax.tree_util.tree_map(np.asarray, (jp, jx)), (tp, tx), lengths
+    return (jp, jx), (tp, tx), lengths
 
 
 def _close(got, want):

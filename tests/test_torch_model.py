@@ -8,6 +8,8 @@ its own scale: 1e-4 of max |x| (measured worst: 1.7e-5 on p_prediction).
 Integer heads (lengths, masks) must agree exactly.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +24,7 @@ from styler_tpu_torch.core.checkpoint import load_acoustic_npz
 from styler_tpu_torch.core.config import default_config
 from styler_tpu_torch.core.convert import load_flax_tree
 from styler_tpu_torch.models import STYLER
+from tests.test_torch_golden_cache import golden, torch_threads  # noqa: F401 (autouse)
 
 ASSET = "assets/acoustic/styler_gen.npz"
 B, L, M = 2, 32, 64
@@ -49,8 +52,15 @@ def inputs():
 
 
 @pytest.fixture(scope="module")
-def jax_out(inputs):
-    src, mel, p, e, src_len, mel_len, spk = inputs
+def jax_out(inputs, tmp_path_factory):
+    def compute():
+        out = _jax_forward(*inputs)
+        return dict(out._asdict(), dat_posteriors=list(out.dat_posteriors))
+
+    return SimpleNamespace(**golden(tmp_path_factory, "model_eval", compute))
+
+
+def _jax_forward(src, mel, p, e, src_len, mel_len, spk):
     params, stats = j_load(ASSET)
     model = JSTYLER(j_config().replace(src_buckets=(L,), mel_buckets=(M,)))
     out = jax.jit(lambda v, *a: model.apply(

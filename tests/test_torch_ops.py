@@ -20,6 +20,7 @@ from styler_tpu_torch.ops import masking as tmask
 from styler_tpu_torch.ops import position as tpos
 from styler_tpu_torch.ops import recurrent as trec
 from styler_tpu_torch.ops import regulate as treg
+from tests.test_torch_golden_cache import torch_threads  # noqa: F401 (autouse)
 
 T = torch.from_numpy
 

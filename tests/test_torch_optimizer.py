@@ -13,6 +13,7 @@ from styler_tpu.core.config import default_config as j_config
 from styler_tpu.train.optimizer import make_optimizer, noam_schedule as j_noam
 from styler_tpu_torch.core.config import default_config
 from styler_tpu_torch.train.optimizer import NoamAdam, clip_by_global_norm, noam_schedule
+from tests.test_torch_golden_cache import torch_threads  # noqa: F401 (autouse)
 
 T = torch.from_numpy
 SHAPES = {"a": (7, 5), "b": (5,), "c": (3, 4, 2)}

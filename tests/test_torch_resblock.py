@@ -19,6 +19,7 @@ from styler_tpu.ops.pallas_resblock import branch_params_from_variables, fused_r
 from styler_tpu.vocoder.hifigan import ResBlock1
 from styler_tpu_torch.ops.resblock import fused_resblock_stage as port_stage
 from styler_tpu_torch.ops.resblock import resblock_stage_plain
+from tests.test_torch_golden_cache import torch_threads  # noqa: F401 (autouse)
 
 
 def _make_params(rng, kernel_sizes, dilations, C):

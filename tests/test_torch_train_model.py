@@ -8,6 +8,8 @@ cannot be made equal; dropout is checked alone, by its distribution. Exact
 f32 on both sides with sums in another order: 1e-4 of each head's scale.
 """
 
+from types import SimpleNamespace
+
 import flax
 import numpy as np
 import pytest
@@ -26,6 +28,7 @@ from styler_tpu_torch.models.transformer import PostNet
 from styler_tpu_torch.ops.dropout import dropout
 from styler_tpu_torch.train import FORWARD_KEYS, train_state_from_flax
 from styler_tpu_torch.train.example import example_batch
+from tests.test_torch_golden_cache import golden, torch_threads  # noqa: F401 (autouse)
 
 REDUCED = dict(encoder_layer=1, decoder_layer=1, fft_conv1d_filter_size=256)
 B, L, M = 2, 12, 48
@@ -45,17 +48,13 @@ def _forward(model, tb, gen=None):
     )
 
 
-@pytest.fixture(scope="module")
-def both():
-    assert FORWARD_KEYS == J_FORWARD_KEYS
-    jcfg = j_config().replace(**REDUCED)
+def _jax_golden():
+    """flax init and the train-mode forward + DAT pass, as numpy."""
     batch = example_batch(default_config(), B=B, L=L, M=M, seed=11)
-    assert batch["mel_len"][1] < M and batch["src_len"][1] <= L  # ragged
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     fwd = {k: jb[k] for k in J_FORWARD_KEYS}
-    model = JSTYLER(jcfg)
-    variables = jax.jit(model.init)(jax.random.PRNGKey(0), **fwd)
-    variables = flax.core.unfreeze(variables)
+    model = JSTYLER(j_config().replace(**REDUCED))
+    variables = flax.core.unfreeze(jax.jit(model.init)(jax.random.PRNGKey(0), **fwd))
 
     @jax.jit
     def run(variables):
@@ -70,8 +69,19 @@ def both():
 
     j_out, j_stats, j_dat = jax.tree_util.tree_map(np.asarray, run(variables))
     params, stats = jax.tree_util.tree_map(np.asarray, (variables["params"], variables["batch_stats"]))
+    return dict(j_out=dict(j_out._asdict(), dat_posteriors=list(j_out.dat_posteriors)),
+                j_stats=flax.core.unfreeze(j_stats), j_dat=list(j_dat), params=params, stats=stats)
 
-    state = train_state_from_flax(default_config().replace(**REDUCED), params, stats, device="cpu")
+
+@pytest.fixture(scope="module")
+def both(tmp_path_factory):
+    assert FORWARD_KEYS == J_FORWARD_KEYS
+    batch = example_batch(default_config(), B=B, L=L, M=M, seed=11)
+    assert batch["mel_len"][1] < M and batch["src_len"][1] <= L  # ragged
+    gold = golden(tmp_path_factory, "train_model", _jax_golden)
+    stats = gold["stats"]
+    state = train_state_from_flax(default_config().replace(**REDUCED), gold["params"], stats,
+                                  device="cpu")
     assert state.model.training
     tb = _as_torch(batch)
     with torch.no_grad():
@@ -80,8 +90,9 @@ def both():
             tb["mel_aug"], tb["f0_norm_aug"], tb["e_input_aug"], tb["mel_len"], tb["src_len"],
             t_out.src_mask,
         )
-    return dict(j_out=j_out, j_stats=flax.core.unfreeze(j_stats), j_dat=j_dat, t_out=t_out,
-                t_dat=t_dat, model=state.model, tb=tb, old_stats=stats)
+    return dict(j_out=SimpleNamespace(**gold["j_out"]), j_stats=gold["j_stats"],
+                j_dat=gold["j_dat"], t_out=t_out, t_dat=t_dat, model=state.model, tb=tb,
+                old_stats=stats)
 
 
 def _close(got, want):

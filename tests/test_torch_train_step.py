@@ -36,6 +36,7 @@ from styler_tpu_torch.train import (
 )
 from styler_tpu_torch.train.example import example_batch, write_example_dataset
 from styler_tpu_torch.train.trainer import Trainer, dropout_generator
+from tests.test_torch_golden_cache import golden, torch_threads  # noqa: F401 (autouse)
 
 REDUCED = dict(encoder_layer=1, decoder_layer=1, fft_conv1d_filter_size=256)
 B, L, M = 2, 12, 48
@@ -48,11 +49,11 @@ def _as_torch(batch):
     return {k: T(v).to(torch.int64) if v.dtype.kind == "i" else T(v) for k, v in batch.items()}
 
 
-@pytest.fixture(scope="module")
-def both():
+def _jax_golden():
+    """The JAX side: flax init, one jitted value_and_grad step and the
+    eval step, as numpy trees (computed once per session)."""
     jcfg = j_config().replace(**REDUCED)
-    cfg = default_config().replace(**REDUCED)
-    batch = example_batch(cfg, B=B, L=L, M=M, seed=21)
+    batch = example_batch(default_config().replace(**REDUCED), B=B, L=L, M=M, seed=21)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     fwd = {k: jb[k] for k in J_FORWARD_KEYS}
     model = JSTYLER(jcfg)
@@ -81,8 +82,20 @@ def both():
     j_new, j_comps, j_grads = j_step(j_state)
     j_eval = jax.jit(lambda s: j_eval_step(model, s, jb, jcfg.dat_weight))(j_state)
     to_np = lambda t: jax.tree_util.tree_map(np.asarray, flax.core.unfreeze(t))  # noqa: E731
-    params, stats = to_np(variables["params"]), to_np(variables["batch_stats"])
+    return dict(
+        params=to_np(variables["params"]), stats=to_np(variables["batch_stats"]),
+        j_comps=to_np(j_comps), j_grads=flatten_tree(to_np(j_grads)),
+        j_new=flatten_tree(to_np(j_new.params)), j_new_stats=flatten_tree(to_np(j_new.batch_stats)),
+        j_eval=to_np(j_eval),
+    )
 
+
+@pytest.fixture(scope="module")
+def both(tmp_path_factory):
+    gold = golden(tmp_path_factory, "train_step", _jax_golden)
+    cfg = default_config().replace(**REDUCED)
+    params, stats = gold["params"], gold["stats"]
+    batch = example_batch(cfg, B=B, L=L, M=M, seed=21)
     state = train_state_from_flax(cfg, params, stats, device="cpu")
     tb = _as_torch(batch)
     t_eval = eval_step(state, tb, cfg.dat_weight)
@@ -94,9 +107,7 @@ def both():
     _, t_comps2 = train_step(state2, tb, None, cfg.dat_weight)
     t_new, t_new_stats = to_flax_tree(state2.model)
     return dict(
-        cfg=cfg, params=flatten_tree(params), j_comps=to_np(j_comps),
-        j_grads=flatten_tree(to_np(j_grads)), j_new=flatten_tree(to_np(j_new.params)),
-        j_new_stats=flatten_tree(to_np(j_new.batch_stats)), j_eval=to_np(j_eval),
+        gold, cfg=cfg, params=flatten_tree(params),
         t_comps=t_comps, t_comps2=t_comps2, t_grads=flatten_tree(t_grads),
         t_new=flatten_tree(t_new), t_new_stats=flatten_tree(t_new_stats), t_eval=t_eval,
         state2=state2, tb=tb,
@@ -210,13 +221,16 @@ def test_fresh_state_follows_flax_initialisation(both):
 
 
 def test_loss_decreases_overfitting_tiny_batch(both):
-    """30 updates on one batch, dropout on (reference tests/test_train.py)."""
-    state = create_train_state(both["cfg"], torch.Generator().manual_seed(1), device="cpu")
+    """10 updates on one batch, dropout on (reference tests/test_train.py),
+    with a Noam warm-up of 400 steps instead of 4000 so that ten steps of
+    the rising rate move the loss well past the dropout noise."""
+    cfg = both["cfg"].replace(n_warm_up_step=400)
+    state = create_train_state(cfg, torch.Generator().manual_seed(1), device="cpu")
     losses = []
-    for i in range(30):
+    for i in range(10):
         _, comps = train_step(state, both["tb"], dropout_generator(0, i, "cpu"))
         losses.append(comps["total"].item())
-    assert np.isfinite(losses).all() and state.step == 30
+    assert np.isfinite(losses).all() and state.step == 10
     assert np.mean(losses[-5:]) < np.mean(losses[:5]), losses
 
 
@@ -225,7 +239,9 @@ def test_save_restore_resumes_bit_for_bit(tmp_path):
     BatchNorm statistics, Adam moments and components equal an
     uninterrupted run's bit for bit on the CPU, dropout on."""
     cfg = write_example_dataset(
-        str(tmp_path / "data"), default_config().replace(batch_size=2, log_step=1, **REDUCED),
+        str(tmp_path / "data"),
+        default_config().replace(batch_size=2, log_step=1, src_buckets=(12,), mel_buckets=(48,),
+                                 **REDUCED),
         8, seed=4, src_len_range=(5, 12), mel_len_range=(20, 48),
     )
 

@@ -29,6 +29,7 @@ from styler_tpu_torch.core.config import default_config
 from styler_tpu_torch.core.convert import load_flax_tree
 from styler_tpu_torch.dsp.mel import MelFrontend
 from styler_tpu_torch.vocoder.istft_net import ISTFTNetGenerator, inverse_stft
+from tests.test_torch_golden_cache import torch_threads  # noqa: F401 (autouse)
 
 ASSET = "assets/vocoder/istft_gen.npz"
 
