@@ -8,7 +8,8 @@ Phases, each printing one JSON line:
 1. device  — the card's name and power limit; fails without a CUDA device.
 2. build   — builds every kernel from ``styler_tpu_torch/csrc`` (one nvcc
              per source, in parallel) and prints the ptxas register /
-             shared-memory / spill summary.
+             shared-memory / spill summary of every kernel entry; fails if
+             an entry of kernel A spills.
 3. kernels — each kernel against its plain PyTorch version at the shapes
              the main paths give it, with the tolerance stated, and CUDA-event
              times of the kernel, the plain version, a PyTorch library call
@@ -18,6 +19,12 @@ Phases, each printing one JSON line:
              serving shapes and in its training form at the training shapes,
              kernel C (LSTM BPTT backward) at the training shapes.
              (Kernel A on the iSTFTNet stages here; on HiFi-GAN's in 6.)
+             Each kernel A line also carries the launch plan of its bf16
+             mode (tile [BM, BN], grid and shared memory of the largest-halo
+             conv, the fewest CTAs per SM over the stage's convs, every
+             conv's plan) and ``hbm_floor_ms``, the bytes its 18 launches
+             move at 3.35 TB/s, beside ``bound_ms``, the whole stage kept
+             on chip; a ``kernels_summary`` line sums a path's stages.
 4. main    — ``load_synthesizer(default_config())`` on CUDA, reference
              features of ``assets/vocoder/val/val_0000.wav``, a seeded
              unit-norm speaker embedding, and ``synthesize`` on 3 sentences;
@@ -117,18 +124,22 @@ def bound(flops: float, peak: float, n_bytes: float):
 
 
 def ptxas_summary(report: dict) -> dict:
+    """Registers, static shared memory and spills of every kernel entry in
+    each library's ptxas report (one entry per template instance)."""
     out = {}
     for name, log in report.items():
         entries = []
-        for m in re.finditer(
-            r"Compiling entry function '(\S+)'.*?(\d+) bytes spill stores, (\d+) bytes "
-            r"spill loads.*?Used (\d+) registers(?:.*?(\d+) bytes smem)?",
-            log, re.S,
-        ):
+        for chunk in log.split("Compiling entry function ")[1:]:
+            fn = re.match(r"'(\S+)'", chunk)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
+            regs = re.search(r"Used (\d+) registers", chunk)
+            smem = re.search(r"Used \d+ registers[^\n]*?(\d+) bytes smem", chunk)
+            if not (fn and spill and regs):
+                continue
             entries.append({
-                "function": m.group(1), "registers": int(m.group(4)),
-                "static_smem_bytes": int(m.group(5) or 0),
-                "spill_store_bytes": int(m.group(2)), "spill_load_bytes": int(m.group(3)),
+                "function": fn.group(1), "registers": int(regs.group(1)),
+                "static_smem_bytes": int(smem.group(1)) if smem else 0,
+                "spill_store_bytes": int(spill.group(1)), "spill_load_bytes": int(spill.group(2)),
             })
         out[name] = entries
     return out
@@ -147,6 +158,36 @@ def resblock_library(torch, F, x, bp, kernel_sizes, dilations):
             xb = xb + xt
         total = xb if total is None else total + xb
     return (total / len(bp)).transpose(1, 2)
+
+
+def stage_launch_bytes(B, T, C, kernel_sizes, dilations, esz):
+    """Bytes kernel A's 18 launches of one stage move through HBM, each
+    read and write once, as ``ops/resblock.py`` chains them: per pair,
+    conv1 reads the f32 carry and writes y in the compute dtype (``esz``
+    bytes), conv2 reads y and the f32 residual and writes the f32 carry
+    (the branch sum, or the final output in the compute dtype, after the
+    last dilation), plus weights and biases."""
+    n = B * T * C
+    total = 0
+    for bi, k in enumerate(kernel_sizes):
+        for i, _ in enumerate(dilations):
+            weights = 2 * (k * C * C * esz + C * 4)
+            last = i == len(dilations) - 1
+            total += 4 * n + esz * n + esz * n + 4 * n + weights
+            if last and bi > 0:
+                total += 4 * n  # the branch sum read
+            total += esz * n if last and bi == len(kernel_sizes) - 1 else 4 * n
+    return total
+
+
+def stage_plans(B, T, C, kernel_sizes, dilations):
+    """The bf16 launch plan of every distinct conv of a stage (conv1 at
+    each dilation, conv2 at dilation 1), largest halo first."""
+    from styler_tpu_torch.ops.resblock import bf16_launch_plan
+
+    convs = sorted({(k, d) for k in kernel_sizes for d in (*dilations, 1)},
+                   key=lambda kd: -((kd[0] - 1) // 2 * kd[1]))
+    return [{"k": k, "dil": d, **bf16_launch_plan(B, T, C, k, d)} for k, d in convs]
 
 
 def stage_inputs(torch, g, mel2b):
@@ -189,6 +230,7 @@ def phase_resblock(torch, g, mel2b, path, int8=False):
     taps = 2 * len(dils) * sum(ks)  # per output element and input channel
     rec_a = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0.0}
     rec_q = dict(rec_a) if int8 else None
+    summary = {"stages_ms": [], "stages_library_ms": [], "hbm_floor_ms": 0.0}
     work = {"a": [0.0, 0.0], "q": [0.0, 0.0]}  # flops, bytes
     for i, x_bf in enumerate(stage_in):
         blocks = [getattr(g, f"resblocks_{i}_{j}") for j in range(len(ks))]
@@ -216,11 +258,24 @@ def phase_resblock(torch, g, mel2b, path, int8=False):
             esz = x_in.element_size()
             n_bytes = 2 * B * T * C * esz + taps * C * C * esz + 2 * len(dils) * len(ks) * C * 4
             b_ms, b_by = bound(flops, peak, n_bytes)
+            floor_ms = stage_launch_bytes(B, T, C, ks, dils, esz) / HBM_BYTES_PER_S * 1e3
+            if dtype == torch.bfloat16:
+                plans = stage_plans(B, T, C, ks, dils)
+                geometry = {"tile": plans[0]["tile"], "grid": plans[0]["grid"],
+                            "ctas_per_sm": min(p["ctas_per_sm"] for p in plans),
+                            "smem_bytes": max(p["smem_bytes"] for p in plans), "plans": plans}
+            else:  # the f32 kernel's fixed 64 x 64 tile, static shared memory
+                geometry = {"tile": [64, 64], "grid": [-(-T // 64), -(-C // 64), B],
+                            "ctas_per_sm": "not queried", "smem_bytes": 34816}
             emit("kernels", kernel="resblock_stage", path=path, stage=i, shape=[B, T, C],
                  dtype=str(dtype), max_abs_err=err, out_scale=scale, tolerance=f"{tol} x max|plain|",
                  ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                 hbm_floor_ms=floor_ms, **geometry,
                  flops=flops, bytes=n_bytes, launches_per_request=2 * len(dils) * len(ks))
             if dtype == torch.bfloat16:  # the main path's dtype
+                summary["stages_ms"].append(ms)
+                summary["stages_library_ms"].append(lib_ms)
+                summary["hbm_floor_ms"] += floor_ms
                 lib_bf16 = lib_ms
                 for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms)):
                     rec_a[k] += v
@@ -260,6 +315,8 @@ def phase_resblock(torch, g, mel2b, path, int8=False):
         work["q"][0] += flops
         work["q"][1] += n_bytes
     rec_a["bound_ms"], rec_a["bound_by"] = bound(work["a"][0], PEAK_BF16, work["a"][1])
+    emit("kernels_summary", kernel="resblock_stage", path=path, dtype="torch.bfloat16",
+         ms=rec_a["ms"], library_ms=rec_a["library_ms"], bound_ms=rec_a["bound_ms"], **summary)
     if int8:
         rec_q["bound_ms"], rec_q["bound_by"] = bound(work["q"][0], PEAK_INT8, work["q"][1])
     return rec_a, rec_q
@@ -854,8 +911,10 @@ def main() -> int:
         prefix="smoke-", dir=os.path.join(ROOT, "styler_tpu_torch", "_build"))
     t0 = time.perf_counter()
     libs = build.build()
-    emit("build", seconds=time.perf_counter() - t0, libraries=libs,
-         ptxas=ptxas_summary(build.ptxas_report))
+    ptxas = ptxas_summary(build.ptxas_report)
+    emit("build", seconds=time.perf_counter() - t0, libraries=libs, ptxas=ptxas)
+    spills = [e["function"] for e in ptxas["resblock"] if e["spill_store_bytes"] or e["spill_load_bytes"]]
+    check(len(ptxas["resblock"]) > 1 and not spills, f"kernel A: ptxas spills in {spills}")
 
     # 3. kernels vs plain, at the main path's shapes
     cfg = default_config()

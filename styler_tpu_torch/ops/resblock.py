@@ -9,6 +9,9 @@ Kernel A of the port. It replaces the Pallas TPU kernel
 with the hand-written CUDA kernel ``csrc/resblock.cu``: one dilated conv
 per launch with leaky-ReLU, SAME padding, bias, the f32 residual carry and
 the branch mean fused into its load and epilogue; 18 launches per stage.
+In bf16 a pair's first conv writes its output already activated and
+rounded, ``bf16(lrelu(y))``, which is exactly what the second conv would
+compute from an f32 ``y``; the f32 mode keeps ``y`` in f32.
 The TPU kernel's block-Toeplitz channel fold exists only to fill the
 TPU's 128 lanes and has no counterpart here. Source note, bound and
 design: see the header of ``csrc/resblock.cu``.
@@ -51,8 +54,8 @@ from styler_tpu_torch.ops import build
 
 LRELU_SLOPE = 0.1
 
-# epilogue flags of csrc/resblock.cu
-_RES, _ACC_READ, _ACC_WRITE, _FINAL = 1, 2, 4, 8
+# epilogue flags of csrc/resblock.cu (ACT_OUT, IN_ACT: bf16 mode only)
+_RES, _ACC_READ, _ACC_WRITE, _FINAL, _ACT_OUT, _IN_ACT = 1, 2, 4, 8, 16, 32
 
 BranchParams = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -231,8 +234,31 @@ def _library():
             p, p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, p,
         ]
         lib.styler_resblock_conv.restype = ctypes.c_int
+        lib.styler_resblock_bf16_plan.argtypes = [i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+        lib.styler_resblock_bf16_plan.restype = ctypes.c_int
+        lib.styler_resblock_bf16_force_tile.argtypes = [i, i, i, i]
+        lib.styler_resblock_bf16_force_tile.restype = ctypes.c_int
         lib._styler_bound = True
     return lib
+
+
+def bf16_launch_plan(B: int, T: int, C: int, k: int, dil: int) -> dict:
+    """What one bf16 launch of the resblock kernel at this shape runs on
+    the current card: tile [BM, BN], warp width, threads per CTA, grid,
+    dynamic shared memory, whether the weights stay resident, and CTAs per
+    SM."""
+    out = (ctypes.c_int * 10)()
+    build.check(_library().styler_resblock_bf16_plan(B, T, C, k, dil, out), "resblock launch plan")
+    bm, bn, wn, threads, gx, gy, gz, smem, resident, ctas = list(out)
+    return {"tile": [bm, bn], "warp_n": wn, "threads": threads, "grid": [gx, gy, gz],
+            "smem_bytes": smem, "weights": "resident" if resident else "ring", "ctas_per_sm": ctas}
+
+
+def force_bf16_tile(bn: int, bm: int = 0, wn: int = 0, threads: int = 256) -> None:
+    """Tile sweeps only: run the bf16 launches whose N tile is ``bn`` on
+    the tile of ``bm`` rows, warp width ``wn`` and ``threads`` per CTA;
+    ``bm=0`` restores the kernel's own choice."""
+    build.check(_library().styler_resblock_bf16_force_tile(bn, bm, wn, threads), "resblock tile")
 
 
 def fused_resblock_stage(
@@ -265,12 +291,15 @@ def fused_resblock_stage(
     dtype = x.dtype
     bf16 = 1 if dtype == torch.bfloat16 else 0
     x32 = x.float()
-    y = torch.empty_like(x32)
+    # bf16: y holds bf16(lrelu(conv1)), written by conv1 (ACT_OUT) and read
+    # as it is by conv2 (IN_ACT); f32: y is conv1's f32 output
+    y = torch.empty_like(x)
     carry = torch.empty_like(x32)
     acc = torch.empty_like(x32)
     out = torch.empty_like(x)
     n_br = len(branch_params)
     scale = 1.0 / n_br
+    act_out, in_act = (_ACT_OUT, _IN_ACT) if bf16 else (0, 0)
     for br, ((w1, b1, w2, b2), k) in enumerate(zip(branch_params, kernel_sizes)):
         w1c = w1.to(dtype).contiguous()
         w2c = w2.to(dtype).contiguous()
@@ -278,8 +307,8 @@ def fused_resblock_stage(
         b2c = b2.float().contiguous()
         src = x32
         for i, d in enumerate(dilations):
-            _launch(lib, src, w1c[i], b1c[i], None, acc, y, out, k, d, 0, scale, bf16)
-            flags = _RES
+            _launch(lib, src, w1c[i], b1c[i], None, acc, y, y, k, d, act_out, scale, bf16)
+            flags = _RES | in_act
             if i == len(dilations) - 1:
                 if br > 0:
                     flags |= _ACC_READ

@@ -23,6 +23,7 @@ from styler_tpu_torch.ops.lstm import (
     pack_w_hh,
 )
 from styler_tpu_torch.ops.resblock import (
+    bf16_launch_plan,
     fused_resblock_stage,
     quantize_branch_params,
     resblock_stage_int8,
@@ -73,6 +74,17 @@ def _branch_params(rng, kernel_sizes, n_dil, C, device):
         (torch.bfloat16, 3, 333, 40, (3, 7, 11), (1, 3, 5), 3e-2),
         (torch.bfloat16, 1, 128, 32, (3,), (1, 2), 3e-2),
         (torch.float32, 1, 333, 32, (3, 7, 11), (1, 3, 5), 1e-5),
+        # bf16 at every N tile (BN = 32, 64, 128) and ragged edge: C not a
+        # multiple of 16 (8, 24, 136) or of BN (16, 24, 136), T of one row,
+        # below the halo and not a multiple of BM, B in the grid
+        (torch.bfloat16, 2, 64, 8, (3, 5), (1, 2), 3e-2),
+        (torch.bfloat16, 1, 1, 16, (3, 7, 11), (1, 3, 5), 3e-2),
+        (torch.bfloat16, 3, 40, 24, (3, 7, 11), (1, 3, 5), 3e-2),
+        (torch.bfloat16, 1, 513, 32, (3, 7, 11), (1, 3, 5), 3e-2),
+        (torch.bfloat16, 3, 1000, 64, (3, 7, 11), (1, 3, 5), 3e-2),
+        (torch.bfloat16, 1, 513, 128, (3, 7, 11), (1, 3, 5), 3e-2),
+        (torch.bfloat16, 3, 40, 136, (3, 7, 11), (1, 3, 5), 3e-2),
+        (torch.bfloat16, 3, 513, 256, (3, 7, 11), (1, 3, 5), 3e-2),
     ],
 )
 def test_resblock_kernel_matches_plain(
@@ -91,6 +103,57 @@ def test_resblock_kernel_matches_plain(
     scale = want.float().abs().max().item()
     err = (got.float() - want.float()).abs().max().item()
     assert err <= tol * max(scale, 1.0), (err, scale)
+
+
+@pytest.mark.parametrize("C", [32, 128])
+def test_resblock_kernel_single_pair_matches_plain(cuda_device, C):
+    """One conv pair, (k, dil) = (11, 5): the first conv writes
+    bf16(lrelu(y)) and the second reads it as it is, so a wrongly
+    activated or rounded intermediate shows up here on its own."""
+    rng = np.random.default_rng(C + 11)
+    bp = _branch_params(rng, (11,), 1, C, cuda_device)
+    x = torch.from_numpy(rng.standard_normal((2, 777, C)).astype(np.float32))
+    x = x.to(cuda_device, torch.bfloat16)
+    before = fused_resblock_stage.launches
+    got = fused_resblock_stage(x, bp, (11,), (5,))
+    torch.cuda.synchronize()
+    assert fused_resblock_stage.launches - before == 2
+    want = resblock_stage_plain(x, bp, (11,), (5,))
+    scale = want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 3e-2 * max(scale, 1.0), (err, scale)
+
+
+@pytest.mark.parametrize("B,T,C", [(2, 3000, 64), (1, 1025, 128), (2, 700, 32)])
+def test_resblock_kernel_is_deterministic(cuda_device, B, T, C):
+    """No atomics and no split over input channels: two calls agree bit
+    for bit."""
+    rng = np.random.default_rng(T)
+    bp = _branch_params(rng, (3, 7, 11), 3, C, cuda_device)
+    x = torch.from_numpy(rng.standard_normal((B, T, C)).astype(np.float32))
+    x = x.to(cuda_device, torch.bfloat16)
+    a = fused_resblock_stage(x, bp)
+    b = fused_resblock_stage(x, bp)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_resblock_plan_follows_c(cuda_device):
+    """The N tile is the smallest of 32, 64, 128 that holds C (128 with
+    more column blocks above), and at the main path's shapes every conv of
+    a stage keeps 16 warps on an SM (2 CTAs of 256 threads, 4 of 128 or
+    1 of 512)."""
+    for C, bn in ((8, 32), (24, 32), (32, 32), (40, 64), (64, 64), (96, 128),
+                  (128, 128), (136, 128), (256, 128)):
+        plan = bf16_launch_plan(2, 4096, C, 11, 5)
+        assert plan["tile"][1] == bn and plan["grid"][1] == -(-C // bn), (C, plan)
+        assert plan["grid"][0] == -(-4096 // plan["tile"][0]) and plan["grid"][2] == 2
+        assert plan["ctas_per_sm"] >= 1
+    for B, T, C in ((2, 8192, 256), (2, 65536, 128), (2, 131072, 64), (2, 262144, 32)):
+        for k in (3, 7, 11):
+            for dil in (1, 3, 5):
+                plan = bf16_launch_plan(B, T, C, k, dil)
+                assert plan["ctas_per_sm"] * plan["threads"] >= 512, (B, T, C, k, dil, plan)
 
 
 def test_resblock_kernel_rejects_bad_input(cuda_device):

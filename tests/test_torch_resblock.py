@@ -2,7 +2,10 @@
 against the JAX package: the Pallas stage kernel in interpret mode (f32
 and bf16) and the flax ``ResBlock1`` mean (f32).
 
-f32: both sides are exact f32 with sums in another order -> 1e-5.
+f32: both sides are exact f32 with sums in another order -> 1e-5 up to
+C = 32, and 1e-5 x C / 32 above: a conv sums k x C products, so the
+rounding of another order grows with C (measured 1.4e-5 on one element of
+65536 at C = 128).
 bf16: both round every conv input to bf16, sum in f32 and keep the carry
 in f32 (the Pallas kernel's semantics); an order change can flip a bf16
 rounding that then propagates, so the bound is 2% of the output scale
@@ -44,10 +47,13 @@ def _port_branch_params(params, n_branches):
 
 
 # (kernel_sizes, dilations, C, T, block_t): the Pallas tests' small shape,
-# and the production topology at a T the Pallas kernel splits into 4 blocks
+# and the production topology at a T the Pallas kernel splits into 4 blocks,
+# at the widths of the CUDA kernel's three N tiles (BN = 32, 64, 128)
 CASES = [
     ((3, 5), (1, 2), 8, 64, 0),
     ((3, 7, 11), (1, 3, 5), 32, 512, 32),
+    ((3, 7, 11), (1, 3, 5), 64, 256, 64),
+    ((3, 7, 11), (1, 3, 5), 128, 256, 64),
 ]
 
 
@@ -63,7 +69,8 @@ def test_stage_f32_matches_pallas_interpret(kernel_sizes, dilations, C, T_, bloc
     got = port_stage(torch.from_numpy(x), _port_branch_params(params, len(kernel_sizes)),
                      kernel_sizes, dilations)
     assert got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    tol = 1e-5 * max(1, C // 32)
+    np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("kernel_sizes,dilations,C,T_,block_t", CASES)
