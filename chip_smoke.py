@@ -9,7 +9,7 @@ Phases, each printing one JSON line:
 2. build   — builds every kernel from ``styler_tpu_torch/csrc`` (one nvcc
              per source, in parallel) and prints the ptxas register /
              shared-memory / spill summary of every kernel entry; fails if
-             an entry of kernel A spills.
+             an entry of kernel A or of its int8 form spills.
 3. kernels — each kernel against its plain PyTorch version at the shapes
              the main paths give it, with the tolerance stated, and CUDA-event
              times of the kernel, the plain version, a PyTorch library call
@@ -22,9 +22,10 @@ Phases, each printing one JSON line:
              Each kernel A line also carries the launch plan of its bf16
              mode (tile [BM, BN], grid and shared memory of the largest-halo
              conv, the fewest CTAs per SM over the stage's convs, every
-             conv's plan) and ``hbm_floor_ms``, the bytes its 18 launches
-             move at 3.35 TB/s, beside ``bound_ms``, the whole stage kept
-             on chip; a ``kernels_summary`` line sums a path's stages.
+             conv's plan) beside ``bound_ms``, the whole stage kept on
+             chip; a ``kernels_summary`` line sums a path's stages and
+             carries ``hbm_floor_ms``, the bytes the 18 launches of each
+             stage move at 3.35 TB/s (worked out, not measured).
 4. main    — ``load_synthesizer(default_config())`` on CUDA, reference
              features of ``assets/vocoder/val/val_0000.wav``, a seeded
              unit-norm speaker embedding, and ``synthesize`` on 3 sentences;
@@ -37,7 +38,12 @@ Phases, each printing one JSON line:
              kernel A (bf16 and f32) and the int8 kernel against their plain
              versions on the four HiFi-GAN stage inputs of the 2B batch of
              1024-frame mels ([2, 8192, 256] .. [2, 262144, 32]), with times,
-             the cuDNN bf16 conv chain as yardstick and the bound.
+             the cuDNN bf16 conv chain as yardstick and the bound; each int8
+             line carries its launch plan, and its kernels_summary line the
+             HBM floor of its 18 launches (f32 y and carry). Then one stage
+             whose branches have
+             dilations of their own (branch_dilations), kernel against
+             plain in bf16 and int8.
 7. main_hifigan — 3 requests after a warm-up through HiFi-GAN; kernel A
              launches 72 times per request, the int8 kernel never; then a
              profiled request (profile_hifigan).
@@ -147,12 +153,13 @@ def ptxas_summary(report: dict) -> dict:
 
 def resblock_library(torch, F, x, bp, kernel_sizes, dilations):
     """Yardstick: the unfused stage as a chain of cuDNN F.conv1d calls in
-    the compute dtype (channels-first), as the flax ResBlock1 composes it."""
+    the compute dtype (channels-first), as the flax ResBlock1 composes it.
+    ``dilations``: one tuple per branch."""
     xc = x.transpose(1, 2)
     total = None
-    for (w1, b1, w2, b2), k in zip(bp, kernel_sizes):
+    for (w1, b1, w2, b2), k, dils in zip(bp, kernel_sizes, dilations):
         xb = xc
-        for i, d in enumerate(dilations):
+        for i, d in enumerate(dils):
             xt = F.conv1d(F.leaky_relu(xb, 0.1), w1[i], b1[i], padding=d * (k - 1) // 2, dilation=d)
             xt = F.conv1d(F.leaky_relu(xt, 0.1), w2[i], b2[i], padding=(k - 1) // 2)
             xb = xb + xt
@@ -160,34 +167,53 @@ def resblock_library(torch, F, x, bp, kernel_sizes, dilations):
     return (total / len(bp)).transpose(1, 2)
 
 
-def stage_launch_bytes(B, T, C, kernel_sizes, dilations, esz):
-    """Bytes kernel A's 18 launches of one stage move through HBM, each
-    read and write once, as ``ops/resblock.py`` chains them: per pair,
-    conv1 reads the f32 carry and writes y in the compute dtype (``esz``
-    bytes), conv2 reads y and the f32 residual and writes the f32 carry
-    (the branch sum, or the final output in the compute dtype, after the
-    last dilation), plus weights and biases."""
+def stage_launch_bytes(B, T, C, kernel_sizes, dilations, y_bytes, out_bytes, w_bytes):
+    """Bytes the launches of one stage (18 at 3 branches x 3 dilations)
+    move through HBM, each read and write once, as ``ops/resblock.py``
+    chains them: per pair, conv1 reads the f32 carry and writes y
+    (``y_bytes`` per element: the compute dtype in kernel A, f32 in the
+    int8 form), conv2 reads y and the f32 residual and writes the f32 carry
+    (the branch sum, or the final output of ``out_bytes``, after the last
+    dilation), plus weights (``w_bytes`` each) and biases (and the int8
+    form's scales). ``dilations``: one tuple per branch."""
     n = B * T * C
     total = 0
-    for bi, k in enumerate(kernel_sizes):
-        for i, _ in enumerate(dilations):
-            weights = 2 * (k * C * C * esz + C * 4)
-            last = i == len(dilations) - 1
-            total += 4 * n + esz * n + esz * n + 4 * n + weights
+    for bi, (k, dils) in enumerate(zip(kernel_sizes, dilations)):
+        for i, _ in enumerate(dils):
+            scales = C * 4 if w_bytes == 1 else 0  # the int8 weights' per-channel scales
+            weights = 2 * (k * C * C * w_bytes + C * 4 + scales)
+            last = i == len(dils) - 1
+            total += 4 * n + y_bytes * n + y_bytes * n + 4 * n + weights
             if last and bi > 0:
                 total += 4 * n  # the branch sum read
-            total += esz * n if last and bi == len(kernel_sizes) - 1 else 4 * n
+            total += out_bytes * n if last and bi == len(kernel_sizes) - 1 else 4 * n
     return total
 
 
-def stage_plans(B, T, C, kernel_sizes, dilations):
-    """The bf16 launch plan of every distinct conv of a stage (conv1 at
-    each dilation, conv2 at dilation 1), largest halo first."""
-    from styler_tpu_torch.ops.resblock import bf16_launch_plan
+def stage_taps(kernel_sizes, dilations):
+    """Taps per output element and input channel of one stage: two convs
+    per dilation of each branch. ``dilations``: one tuple per branch."""
+    return 2 * sum(k * len(ds) for k, ds in zip(kernel_sizes, dilations))
 
-    convs = sorted({(k, d) for k in kernel_sizes for d in (*dilations, 1)},
+
+def stage_plans(B, T, C, kernel_sizes, dilations, int8=False):
+    """The launch plan (bf16 kernel A, or the int8 form) of every distinct
+    conv of a stage (conv1 at each dilation of its branch, conv2 at
+    dilation 1), largest halo first, and their summary: the largest conv's
+    tile and grid, the fewest CTAs per SM, the most shared memory, and
+    whether the weights stay resident (every conv, none, or some)."""
+    from styler_tpu_torch.ops.resblock import bf16_launch_plan, int8_launch_plan
+
+    plan = int8_launch_plan if int8 else bf16_launch_plan
+    convs = sorted({(k, d) for k, ds in zip(kernel_sizes, dilations) for d in (*ds, 1)},
                    key=lambda kd: -((kd[0] - 1) // 2 * kd[1]))
-    return [{"k": k, "dil": d, **bf16_launch_plan(B, T, C, k, d)} for k, d in convs]
+    plans = [{"k": k, "dil": d, **plan(B, T, C, k, d)} for k, d in convs]
+    weights = {p["weights"] for p in plans}
+    return {"tile": plans[0]["tile"], "threads": plans[0]["threads"], "grid": plans[0]["grid"],
+            "ctas_per_sm": min(p["ctas_per_sm"] for p in plans),
+            "smem_bytes": max(p["smem_bytes"] for p in plans),
+            "weights": weights.pop() if len(weights) == 1 else "resident and ring",
+            "plans": plans}
 
 
 def stage_inputs(torch, g, mel2b):
@@ -198,7 +224,7 @@ def stage_inputs(torch, g, mel2b):
     from styler_tpu_torch.ops.resblock import fused_resblock_stage
 
     ks = tuple(g.config.resblock_kernel_sizes)
-    dils = tuple(g.config.resblock_dilation_sizes[0])
+    dils = tuple(tuple(d) for d in g.config.resblock_dilation_sizes)
     out = []
     with torch.no_grad():
         x = g._conv(g.conv_pre, mel2b)
@@ -224,13 +250,18 @@ def phase_resblock(torch, g, mel2b, path, int8=False):
         resblock_stage_int8,
         resblock_stage_int8_plain,
         resblock_stage_plain,
+        stage_launches,
     )
 
     stage_in, ks, dils = stage_inputs(torch, g, mel2b)
-    taps = 2 * len(dils) * sum(ks)  # per output element and input channel
+    taps = stage_taps(ks, dils)  # per output element and input channel
+    n_launch = stage_launches(dils, len(ks))
     rec_a = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0.0}
     rec_q = dict(rec_a) if int8 else None
-    summary = {"stages_ms": [], "stages_library_ms": [], "hbm_floor_ms": 0.0}
+    # HBM floors (bytes over the memory rate, not measured) go on the
+    # kernels_summary lines, apart from the measured kernel records
+    summary = {"stages_ms": [], "stages_library_ms": [], "stages_hbm_floor_ms": [], "hbm_floor_ms": 0.0}
+    summary_q = {"stages_ms": [], "stages_hbm_floor_ms": [], "hbm_floor_ms": 0.0}
     work = {"a": [0.0, 0.0], "q": [0.0, 0.0]}  # flops, bytes
     for i, x_bf in enumerate(stage_in):
         blocks = [getattr(g, f"resblocks_{i}_{j}") for j in range(len(ks))]
@@ -256,25 +287,23 @@ def phase_resblock(torch, g, mel2b, path, int8=False):
                              for t in b) for b in bp]  # [n_dil, Cout, Cin, k] for F.conv1d
                 lib_ms = cuda_ms(torch, lambda: resblock_library(torch, F, x_in, bpc, ks, dils), 5)
             esz = x_in.element_size()
-            n_bytes = 2 * B * T * C * esz + taps * C * C * esz + 2 * len(dils) * len(ks) * C * 4
+            n_bytes = 2 * B * T * C * esz + taps * C * C * esz + n_launch * C * 4
             b_ms, b_by = bound(flops, peak, n_bytes)
-            floor_ms = stage_launch_bytes(B, T, C, ks, dils, esz) / HBM_BYTES_PER_S * 1e3
+            floor_ms = stage_launch_bytes(B, T, C, ks, dils, esz, esz, esz) / HBM_BYTES_PER_S * 1e3
             if dtype == torch.bfloat16:
-                plans = stage_plans(B, T, C, ks, dils)
-                geometry = {"tile": plans[0]["tile"], "grid": plans[0]["grid"],
-                            "ctas_per_sm": min(p["ctas_per_sm"] for p in plans),
-                            "smem_bytes": max(p["smem_bytes"] for p in plans), "plans": plans}
+                geometry = stage_plans(B, T, C, ks, dils)
             else:  # the f32 kernel's fixed 64 x 64 tile, static shared memory
                 geometry = {"tile": [64, 64], "grid": [-(-T // 64), -(-C // 64), B],
                             "ctas_per_sm": "not queried", "smem_bytes": 34816}
             emit("kernels", kernel="resblock_stage", path=path, stage=i, shape=[B, T, C],
                  dtype=str(dtype), max_abs_err=err, out_scale=scale, tolerance=f"{tol} x max|plain|",
                  ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                 hbm_floor_ms=floor_ms, **geometry,
-                 flops=flops, bytes=n_bytes, launches_per_request=2 * len(dils) * len(ks))
+                 **geometry,
+                 flops=flops, bytes=n_bytes, launches_per_request=n_launch)
             if dtype == torch.bfloat16:  # the main path's dtype
                 summary["stages_ms"].append(ms)
                 summary["stages_library_ms"].append(lib_ms)
+                summary["stages_hbm_floor_ms"].append(floor_ms)
                 summary["hbm_floor_ms"] += floor_ms
                 lib_bf16 = lib_ms
                 for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms)):
@@ -298,8 +327,11 @@ def phase_resblock(torch, g, mel2b, path, int8=False):
                   f"int8 stage {i}: max |kernel - plain| {err} > {INT8_TOL} x {scale}")
             ms = cuda_ms(torch, lambda: resblock_stage_int8(x_in, q, ks, dils), 5)
             plain_ms = cuda_ms(torch, lambda: resblock_stage_int8_plain(x_in, q, ks, dils), 1)
-        n_bytes = 2 * B * T * C * 2 + taps * C * C + 2 * 2 * len(dils) * len(ks) * C * 4
+        n_bytes = 2 * B * T * C * 2 + taps * C * C + 2 * n_launch * C * 4
         b_ms, b_by = bound(flops, PEAK_INT8, n_bytes)
+        # y and the carry in f32, the stage output in bf16, int8 weights
+        floor_ms = stage_launch_bytes(B, T, C, ks, dils, 4, 2, 1) / HBM_BYTES_PER_S * 1e3
+        geometry = stage_plans(B, T, C, ks, dils, int8=True)
         emit("kernels", kernel="resblock_stage_int8", path=path, stage=i, shape=[B, T, C],
              dtype="int8 x int8 -> int32, bf16 in/out", max_abs_err=err, out_scale=scale,
              tolerance=f"{INT8_TOL} x max|plain| (int32 sums exact; f32 epilogue rounding, "
@@ -307,8 +339,11 @@ def phase_resblock(torch, g, mel2b, path, int8=False):
                        "two disagree on a tile's scale)",
              ms=ms, plain_ms=plain_ms, library_ms=lib_bf16,
              library="cuDNN conv chain in bf16 (no int8 convolution in PyTorch)",
-             bound_ms=b_ms, bound_by=b_by, ops=flops, bytes=n_bytes,
-             launches_per_request=2 * len(dils) * len(ks))
+             bound_ms=b_ms, bound_by=b_by, **geometry, ops=flops,
+             bytes=n_bytes, launches_per_request=n_launch)
+        summary_q["stages_ms"].append(ms)
+        summary_q["stages_hbm_floor_ms"].append(floor_ms)
+        summary_q["hbm_floor_ms"] += floor_ms
         for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_bf16)):
             rec_q[k] += v
         rec_q["max_abs_err"] = max(rec_q["max_abs_err"], err)
@@ -319,7 +354,61 @@ def phase_resblock(torch, g, mel2b, path, int8=False):
          ms=rec_a["ms"], library_ms=rec_a["library_ms"], bound_ms=rec_a["bound_ms"], **summary)
     if int8:
         rec_q["bound_ms"], rec_q["bound_by"] = bound(work["q"][0], PEAK_INT8, work["q"][1])
+        emit("kernels_summary", kernel="resblock_stage_int8", path=path, ms=rec_q["ms"],
+             bound_ms=rec_q["bound_ms"], **summary_q)
     return rec_a, rec_q
+
+
+def phase_branch_dilations(torch):
+    """One stage whose branches have dilations of their own,
+    ((1, 3), (1, 3, 5), (2, 4, 6)), at HiFi-GAN stage 1's shape [2, 65536,
+    128] with seeded weights: kernel A (bf16) and the int8 kernel against
+    their plain versions, 16 launches each."""
+    import numpy as np
+
+    from styler_tpu_torch.ops.resblock import (
+        fused_resblock_stage,
+        quantize_branch_params,
+        resblock_stage_int8,
+        resblock_stage_int8_plain,
+        resblock_stage_plain,
+        stage_launches,
+    )
+
+    ks, dils = (3, 7, 11), ((1, 3), (1, 3, 5), (2, 4, 6))
+    B, T, C = 2, 65536, 128
+    rng = np.random.default_rng(6)
+    dev = torch.device("cuda")
+
+    def normal(shape, std):
+        return torch.from_numpy((rng.standard_normal(shape) * std).astype(np.float32)).to(dev)
+
+    bp = [(normal((len(d), k, C, C), 0.5 / np.sqrt(k * C)), normal((len(d), C), 0.01),
+           normal((len(d), k, C, C), 0.5 / np.sqrt(k * C)), normal((len(d), C), 0.01))
+          for k, d in zip(ks, dils)]
+    x = normal((B, T, C), 1.0).to(torch.bfloat16)
+    out = {}
+    with torch.no_grad():
+        for form, fn, plain, params, tol in (
+            ("bf16", fused_resblock_stage, resblock_stage_plain,
+             [tuple(t.to(torch.bfloat16) if t.dim() == 4 else t for t in b) for b in bp], 3e-2),
+            ("int8", resblock_stage_int8, resblock_stage_int8_plain, quantize_branch_params(bp), INT8_TOL),
+        ):
+            before = fn.launches
+            got = fn(x, params, ks, dils)
+            torch.cuda.synchronize()
+            launches = fn.launches - before
+            want = plain(x, params, ks, dils)
+            err = (got.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            check(bool(torch.isfinite(got).all()), f"branch dilations {form}: non-finite output")
+            check(launches == stage_launches(dils, len(ks)) == 16,
+                  f"branch dilations {form}: {launches} launches, expected 16")
+            check(err <= tol * max(scale, 1.0),
+                  f"branch dilations {form}: max |kernel - plain| {err} > {tol} x {scale}")
+            out[form] = {"max_abs_err": err, "out_scale": scale, "tolerance": f"{tol} x max|plain|",
+                         "launches": launches, "ms": cuda_ms(torch, lambda: fn(x, params, ks, dils), 5)}
+    emit("branch_dilations", shape=[B, T, C], kernel_sizes=ks, dilations=dils, **out)
 
 
 def phase_lstm(torch, model, cfg):
@@ -530,6 +619,8 @@ def run_requests(torch, synth, ref, spk, cfg, phase, smi, counters):
     torch.cuda.synchronize()
     for fn in counters.values():
         fn.launches = 0
+        if hasattr(fn, "prep_launches"):  # the int8 form's prep pass, one per stage
+            fn.prep_launches = 0
     M = cfg.mel_buckets[-1]
     outs = []
     for s in SENTENCES:
@@ -547,7 +638,10 @@ def run_requests(torch, synth, ref, spk, cfg, phase, smi, counters):
         outs.append(out)
         emit(phase, sentence=s, phonemes=int((~out["src_mask"][0]).sum()), mel_len=ml,
              wall_ms=wall_ms, card=smi)
-    return outs, {name: fn.launches for name, fn in counters.items()}
+    launches = {name: fn.launches for name, fn in counters.items()}
+    launches.update({f"{name}_prep": fn.prep_launches for name, fn in counters.items()
+                     if hasattr(fn, "prep_launches")})
+    return outs, launches
 
 
 def card_vs_cpu(torch, synth, cpu, g, ref, spk, phase) -> None:
@@ -610,6 +704,7 @@ def phase_hifigan(torch, cfg, mel2b, ref, spk, smi):
     check(synth.config.vocoder == "HiFi-GAN" and not synth.generator.quantize, "not the HiFi-GAN path")
     emit("load_hifigan", seconds=time.perf_counter() - t0, device=str(synth.device))
     rec_a, rec_q = phase_resblock(torch, synth.generator, mel2b, "HiFi-GAN", int8=True)
+    phase_branch_dilations(torch)
 
     outs, launches = run_requests(torch, synth, ref, spk, cfg, "main_hifigan", smi, counters)
     emit("main_hifigan_launches", **launches)
@@ -630,9 +725,11 @@ def phase_hifigan(torch, cfg, mel2b, ref, spk, smi):
     outs_q, launches_q = run_requests(torch, synth_q, ref, spk, cfg, "int8", smi, counters)
     emit("int8_launches", **launches_q)
     check(launches_q["resblock_stage_int8"] == per_request * len(SENTENCES)
+          and launches_q["resblock_stage_int8_prep"] == 4 * len(SENTENCES)
           and launches_q["resblock_stage"] == 0,
-          f"int8 path: int8 kernel launched {launches_q['resblock_stage_int8']} times, kernel A "
-          f"{launches_q['resblock_stage']} (expected {per_request} and 0 per request)")
+          f"int8 path: int8 kernel launched {launches_q['resblock_stage_int8']} times, its prep "
+          f"pass {launches_q['resblock_stage_int8_prep']}, kernel A {launches_q['resblock_stage']} "
+          f"(expected {per_request}, 4 and 0 per request)")
     phase_profile(torch, synth_q, SENTENCES[-1], ref, spk, "profile_int8")
     # quality of the int8 vocoder against the bf16 one: fail only on a
     # non-finite result (checked above) or a log-mel MAE above 1.0; the JAX
@@ -913,8 +1010,9 @@ def main() -> int:
     libs = build.build()
     ptxas = ptxas_summary(build.ptxas_report)
     emit("build", seconds=time.perf_counter() - t0, libraries=libs, ptxas=ptxas)
-    spills = [e["function"] for e in ptxas["resblock"] if e["spill_store_bytes"] or e["spill_load_bytes"]]
-    check(len(ptxas["resblock"]) > 1 and not spills, f"kernel A: ptxas spills in {spills}")
+    for lib in ("resblock", "resblock_int8"):
+        spills = [e["function"] for e in ptxas[lib] if e["spill_store_bytes"] or e["spill_load_bytes"]]
+        check(len(ptxas[lib]) > 1 and not spills, f"{lib}: ptxas spills in {spills}")
 
     # 3. kernels vs plain, at the main path's shapes
     cfg = default_config()

@@ -92,22 +92,13 @@ class Generator(nn.Module):
     stages keep their residual carry in f32 (kernel A). ``quantize=True``
     runs the stages' convolutions as int8 x int8 -> int32 (kernel A's int8
     form); the upsamplers and conv_pre / conv_post stay in compute_dtype.
-
-    Kernel A applies one dilation tuple to every branch, as the JAX
-    package's fused path does (``generator_fused_supported``); the port
-    has no unfused fallback, so a config whose branches differ in their
-    dilations raises ``ValueError``.
+    Each branch takes its own ``resblock_dilation_sizes`` entry, as the
+    flax ``Generator`` does; the kernels run every stage either way.
     """
 
     def __init__(self, config: HiFiGANConfig = HiFiGANConfig(), compute_dtype=torch.bfloat16,
                  quantize: bool = False):
         super().__init__()
-        if any(tuple(d) != tuple(config.resblock_dilation_sizes[0])
-               for d in config.resblock_dilation_sizes):
-            raise ValueError(
-                "kernel A applies resblock_dilation_sizes[0] to every branch; got "
-                f"{config.resblock_dilation_sizes}"
-            )
         cfg = self.config = config
         self.compute_dtype = compute_dtype
         self.quantize = quantize
@@ -117,10 +108,8 @@ class Generator(nn.Module):
         for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
             self.add_module(f"ups_{i}", ConvTranspose1dTorch(ch, ch // 2, k, u))
             ch //= 2
-            for j, rk in enumerate(cfg.resblock_kernel_sizes):
-                self.add_module(
-                    f"resblocks_{i}_{j}", ResBlock1(ch, rk, tuple(cfg.resblock_dilation_sizes[0]))
-                )
+            for j, (rk, rd) in enumerate(zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes)):
+                self.add_module(f"resblocks_{i}_{j}", ResBlock1(ch, rk, tuple(rd)))
         self.conv_post = nn.Conv1d(ch, 1, 7, padding=3)
 
     def _conv(self, conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
@@ -147,7 +136,8 @@ class Generator(nn.Module):
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         cfg = self.config
-        ks, dils = tuple(cfg.resblock_kernel_sizes), tuple(cfg.resblock_dilation_sizes[0])
+        ks = tuple(cfg.resblock_kernel_sizes)
+        dils = tuple(tuple(d) for d in cfg.resblock_dilation_sizes)
         int8 = self.int8_params(mel.device) if self.quantize else None
         x = self._conv(self.conv_pre, mel)
         for i in range(len(cfg.upsample_rates)):

@@ -103,7 +103,7 @@ class ISTFTNetGenerator(nn.Module):
                 x.contiguous(),
                 [blk.branch_params() for blk in blocks],
                 kernel_sizes=tuple(cfg.resblock_kernel_sizes),
-                dilations=tuple(cfg.resblock_dilation_sizes[0]),
+                dilations=tuple(tuple(d) for d in cfg.resblock_dilation_sizes),
             )
         # conv_post follows F.leaky_relu's default slope 0.01, not 0.1
         x = self._conv(self.conv_post, F.leaky_relu(x, 0.01)).float()

@@ -23,8 +23,11 @@ from styler_tpu_torch.ops.lstm import (
     pack_w_hh,
 )
 from styler_tpu_torch.ops.resblock import (
+    INT8_TILE,
     bf16_launch_plan,
+    force_int8_tile,
     fused_resblock_stage,
+    int8_launch_plan,
     quantize_branch_params,
     resblock_stage_int8,
     resblock_stage_int8_plain,
@@ -42,17 +45,20 @@ def cuda_device():
 
 
 def _branch_params(rng, kernel_sizes, n_dil, C, device):
+    """Seeded (w1, b1, w2, b2) per kernel size; ``n_dil`` is one count for
+    every branch or one per branch."""
     out = []
-    for k in kernel_sizes:
+    n_dils = n_dil if isinstance(n_dil, (tuple, list)) else [n_dil] * len(kernel_sizes)
+    for k, nd in zip(kernel_sizes, n_dils):
         w1, w2 = (
             torch.from_numpy(
-                (rng.standard_normal((n_dil, k, C, C)) * 0.05).astype(np.float32)
+                (rng.standard_normal((nd, k, C, C)) * 0.05).astype(np.float32)
             ).to(device)
             for _ in range(2)
         )
         b1, b2 = (
             torch.from_numpy(
-                (rng.standard_normal((n_dil, C)) * 0.01).astype(np.float32)
+                (rng.standard_normal((nd, C)) * 0.01).astype(np.float32)
             ).to(device)
             for _ in range(2)
         )
@@ -208,6 +214,120 @@ def test_int8_kernel_matches_plain(cuda_device, dtype, B, T, C):
     scale = want.float().abs().max().item()
     err = (got.float() - want.float()).abs().max().item()
     assert err <= INT8_TOL[dtype] * max(scale, 1.0), (err, scale)
+
+
+#: (BM, threads) of every int8 tile per N tile, as csrc/resblock_int8.cu's TILES
+INT8_TILES = {32: ((256, 256), (128, 256)), 64: ((256, 256), (128, 256)),
+              128: ((128, 256), (256, 512))}
+
+
+def _int8_bn(C):
+    return 32 if C <= 32 else 64 if C <= 64 else 128
+
+
+@pytest.mark.parametrize("T", [1, 129, 255, 257, 513, 1000])
+@pytest.mark.parametrize("C", [16, 32, 48, 64, 96, 128, 256])
+def test_int8_kernel_matches_plain_on_every_tile(cuda_device, C, T):
+    """Every tile of the N tile that C selects (where it fits; else the
+    plan's own choice runs), at B = 1 (f32 output: bit for bit) and B = 3
+    (bf16 output). T covers one row, a partial first and second
+    scale window, a 256-row tile and one row more, and ragged ends."""
+    ks, dils = (3, 7, 11), (1, 3, 5)
+    bn = _int8_bn(C)
+    for B, dtype in ((1, torch.float32), (3, torch.bfloat16)):
+        rng = np.random.default_rng(7 * C + T + B)
+        q = quantize_branch_params(_branch_params(rng, ks, len(dils), C, cuda_device))
+        x = torch.from_numpy(rng.standard_normal((B, T, C)).astype(np.float32)).to(cuda_device, dtype)
+        want = resblock_stage_int8_plain(x, q, ks, dils)
+        scale = want.float().abs().max().item()
+        for bm, threads in INT8_TILES[bn]:
+            force_int8_tile(bn, bm, threads)
+            try:
+                before = resblock_stage_int8.launches
+                got = resblock_stage_int8(x, q, ks, dils)
+                torch.cuda.synchronize()
+            finally:
+                force_int8_tile(bn)
+            assert resblock_stage_int8.launches - before == 18
+            assert got.dtype == dtype and got.shape == x.shape
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= INT8_TOL[dtype] * max(scale, 1.0), (B, bm, threads, err, scale)
+            if dtype == torch.float32:
+                assert torch.equal(got, want), (bm, threads, err)
+
+
+def test_int8_kernel_scales_each_window(cuda_device):
+    """Spikes of 1000 in otherwise unit-scale rows of x (f32, C = 64, so
+    256-row tiles of two scale windows each): row 188 lies in the second
+    window of the first tile and outside the first window's halo; row 126
+    in the first window and inside the second window's halo; row 258 just
+    past the tile's edge, inside the halo of the window before it. A
+    kernel that took one scale per tile, or quantised the rows two windows
+    share under only one of their scales, differs from the plain version;
+    this one equals it bit for bit."""
+    ks, dils, C, T = (3, 7, 11), (1, 3, 5), 64, 640
+    rng = np.random.default_rng(11)
+    q = quantize_branch_params(_branch_params(rng, ks, len(dils), C, cuda_device))
+    xn = rng.standard_normal((1, T, C)).astype(np.float32)
+    for t, c in ((188, 5), (126, 40), (258, 17)):
+        xn[0, t, c] = 1000.0
+    x = torch.from_numpy(xn).to(cuda_device)
+    want = resblock_stage_int8_plain(x, q, ks, dils)
+    # the test can tell: one scale per 256 rows changes the result
+    assert not torch.equal(resblock_stage_int8_plain(x, q, ks, dils, tile=2 * INT8_TILE), want)
+    force_int8_tile(64, 256, 256)
+    try:
+        assert int8_launch_plan(1, T, C, 11, 5)["tile"] == [256, 64]
+        got = resblock_stage_int8(x, q, ks, dils)
+        torch.cuda.synchronize()
+    finally:
+        force_int8_tile(64)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("C", [32, 128])
+def test_kernels_take_dilations_per_branch(cuda_device, C, int8):
+    """Branches of 2, 3 and 3 dilations of their own: two launches per
+    dilation of each branch (16), each branch against the plain version."""
+    ks, dils = (3, 7, 11), ((1, 3), (1, 3, 5), (2, 4, 6))
+    rng = np.random.default_rng(C + int8)
+    bp = _branch_params(rng, ks, [len(d) for d in dils], C, cuda_device)
+    x = torch.from_numpy(rng.standard_normal((2, 777, C)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    fn = resblock_stage_int8 if int8 else fused_resblock_stage
+    params = quantize_branch_params(bp) if int8 else bp
+    plain = resblock_stage_int8_plain if int8 else resblock_stage_plain
+    before = fn.launches
+    got = fn(x, params, ks, dils)
+    torch.cuda.synchronize()
+    assert fn.launches - before == 16
+    want = plain(x, params, ks, dils)
+    scale = want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = INT8_TOL[torch.bfloat16] if int8 else 3e-2
+    assert err <= tol * max(scale, 1.0), (err, scale)
+
+
+def test_int8_plan_follows_c(cuda_device):
+    """The N tile is the smallest of 32, 64, 128 that holds C (128 with
+    more column blocks above); the tile holds whole scale windows; at the
+    main path's shapes every conv keeps 16 warps on an SM and the
+    weights stay resident at C = 32 and 64."""
+    for C in (16, 32, 48, 64, 96, 128, 256):
+        bn = _int8_bn(C)
+        plan = int8_launch_plan(2, 4096, C, 11, 5)
+        assert plan["tile"][1] == bn and plan["grid"][1] == -(-C // bn), (C, plan)
+        assert plan["grid"][0] == -(-4096 // plan["tile"][0]) and plan["grid"][2] == 2
+        assert plan["tile"][0] % INT8_TILE == 0
+        assert plan["ctas_per_sm"] >= 1
+    for B, T, C in ((2, 8192, 256), (2, 65536, 128), (2, 131072, 64), (2, 262144, 32)):
+        for k in (3, 7, 11):
+            for dil in (1, 3, 5):
+                plan = int8_launch_plan(B, T, C, k, dil)
+                assert plan["ctas_per_sm"] * plan["threads"] >= 512, (B, T, C, k, dil, plan)
+                if C <= 64:
+                    assert plan["weights"] == "resident", (C, k, dil, plan)
 
 
 def test_int8_kernel_is_deterministic(cuda_device):
