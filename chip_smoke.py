@@ -9,7 +9,8 @@ Phases, each printing one JSON line:
 2. build   — builds every kernel from ``styler_tpu_torch/csrc`` (one nvcc
              per source, in parallel) and prints the ptxas register /
              shared-memory / spill summary of every kernel entry; fails if
-             an entry of kernel A or of its int8 form spills.
+             an entry of kernel A, of its int8 form, of kernel B or of
+             kernel C spills.
 3. kernels — each kernel against its plain PyTorch version at the shapes
              the main paths give it, with the tolerance stated, and CUDA-event
              times of the kernel, the plain version, a PyTorch library call
@@ -17,7 +18,15 @@ Phases, each printing one JSON line:
              and the card's lower bound for the same work: kernel A (resblock
              stage), kernel B (LSTM recurrence) in its serving form at the
              serving shapes and in its training form at the training shapes,
-             kernel C (LSTM BPTT backward) at the training shapes.
+             kernel C (LSTM BPTT backward) at the training shapes. The
+             LSTM lines carry ns per step, their launch plan
+             (``ops/lstm.py:lstm_launch_plan``: instance, threads,
+             registers, shared memory; C's dW tile and split) and the SM
+             clock, power draw and limit sampled right after the timing;
+             C's line also the CUDA-event times of its walk alone and of
+             its dW product alone, and a ``kernels_summary`` line the dW
+             product's own bound beside its time (worked out, not
+             measured, so kept off the measured ``kernels`` records).
              (Kernel A on the iSTFTNet stages here; on HiFi-GAN's in 6.)
              Each kernel A line also carries the launch plan of its bf16
              mode (tile [BM, BN], grid and shared memory of the largest-halo
@@ -122,6 +131,14 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def clocks() -> str:
+    """SM clock, power draw and power limit, sampled now."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
 
 
 def bound(flops: float, peak: float, n_bytes: float):
@@ -415,7 +432,9 @@ def phase_lstm(torch, model, cfg):
     """Kernel B's serving form vs plain on one BiLSTM layer of the audio
     encoder at the largest src bucket, B = 1, the asset's weights, inputs
     of post-ReLU scale."""
-    from styler_tpu_torch.ops.lstm import lstm_recurrence, lstm_recurrence_plain, pack_gates, pack_w_hh
+    from styler_tpu_torch.ops.lstm import (
+        lstm_launch_plan, lstm_recurrence, lstm_recurrence_plain, pack_gates, pack_w_hh,
+    )
     from styler_tpu_torch.ops.recurrent import flip_padded
 
     dev = torch.device("cuda")
@@ -445,6 +464,7 @@ def phase_lstm(torch, model, cfg):
         check(bool(torch.isfinite(got).all()), "lstm serving form: non-finite output")
         check(err <= tol, f"lstm serving form: max |kernel - plain| {err} > {tol}")
         ms = cuda_ms(torch, lambda: lstm_recurrence(g, w), 20)
+        clock = clocks()
         plain_ms = cuda_ms(torch, lambda: lstm_recurrence_plain(g, w), 2)
         # yardstick: cuDNN nn.LSTM, one bidirectional layer per branch on an
         # unpadded sequence (it also computes the input projection)
@@ -463,11 +483,13 @@ def phase_lstm(torch, model, cfg):
     emit("kernels", kernel="lstm_recurrence", form="serving (h only)",
          shape={"S": len(gates), "B": 1, "T": T, "Hp": hp},
          hiddens=hiddens, valid_length=int(lengths[0]), max_abs_err=err, tolerance=tol,
-         ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-         flops=flops, bytes=n_bytes, launches_per_request=2)
+         ms=ms, ns_per_step=ms * 1e6 / T, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+         bound_by=b_by, plan=lstm_launch_plan(hp, len(gates), 1)["recurrence"],
+         clocks_sm_power_draw_limit=clock, flops=flops, bytes=n_bytes, launches_per_request=2)
     n_layers = len(lstms[0].layer_params())
     return {"ms": n_layers * ms, "plain_ms": n_layers * plain_ms, "library_ms": n_layers * lib_ms,
-            "bound_ms": n_layers * b_ms, "bound_by": b_by, "max_abs_err": err}
+            "bound_ms": n_layers * b_ms, "bound_by": b_by, "max_abs_err": err,
+            "ns_per_step": ms * 1e6 / T}
 
 
 def phase_lstm_train(torch, model, cfg, batch_size):
@@ -477,10 +499,11 @@ def phase_lstm_train(torch, model, cfg, batch_size):
     asset, both directions (S = 8), B = batch_size, T = the largest src
     bucket, ragged valid lengths, dh_out from a seeded normal."""
     from styler_tpu_torch.ops.lstm import (
-        lstm_backward, lstm_backward_plain, lstm_recurrence, lstm_recurrence_plain,
-        pack_gates, pack_w_hh,
+        lstm_backward, lstm_backward_plain, lstm_launch_plan, lstm_recurrence,
+        lstm_recurrence_plain, pack_gates, pack_w_hh,
     )
     from styler_tpu_torch.ops.recurrent import flip_padded
+    from styler_tpu_torch.tools.lstm_steps import walk_dw_split
 
     dev = torch.device("cuda")
     enc = model.style_modeling.audio_encoder
@@ -528,6 +551,7 @@ def phase_lstm_train(torch, model, cfg, batch_size):
         err_b = max(e["max_abs_err"] for e in errs_b.values())
         check(bool(torch.equal(lstm_recurrence(g, w), h)), "lstm: serving and training forms differ in h")
         ms_b = cuda_ms(torch, lambda: lstm_recurrence(g, w, save=True), 20)
+        clock_b = clocks()
         ms_b_serving = cuda_ms(torch, lambda: lstm_recurrence(g, w), 20)
         plain_ms_b = cuda_ms(torch, lambda: lstm_recurrence_plain(g, w, save=True), 1)
 
@@ -551,6 +575,8 @@ def phase_lstm_train(torch, model, cfg, batch_size):
         dg2, dw2 = lstm_backward(dh, acts, c, h, w)
         check(bool(torch.equal(dg, dg2) and torch.equal(dw, dw2)), "lstm backward: not deterministic")
         ms_c = cuda_ms(torch, lambda: lstm_backward(dh, acts, c, h, w), 20)
+        clock_c = clocks()
+        split_c = walk_dw_split(dh, acts, c, h, w)
         plain_ms_c = cuda_ms(torch, lambda: lstm_backward_plain(dh, acts, c, h, w), 1)
 
     # yardstick: cuDNN nn.LSTM, one bidirectional layer per branch on the
@@ -587,25 +613,35 @@ def phase_lstm_train(torch, model, cfg, batch_size):
     bytes_c = sum((n_rec * (H + 4 * H + H + H + 4 * H) + 2 * 4 * H * H) * 4.0 for H in hiddens)
     bb_ms, bb_by = bound(flops_b, PEAK_F32, bytes_b)
     bc_ms, bc_by = bound(flops_c, PEAK_F32, bytes_c)
+    # C's dW product alone: h^T . dgates, h and dgates read once, dW written
+    dwb_ms, dwb_by = bound(sum(n_rec * 2.0 * 4 * H * H for H in hiddens), PEAK_F32,
+                         sum((n_rec * (H + 4 * H) + 4 * H * H) * 4.0 for H in hiddens))
     shape = {"S": S, "B": B, "T": T, "Hp": hp}
+    plan = lstm_launch_plan(hp, S, B)
     emit("kernels", kernel="lstm_recurrence", form="training (h, c, acts)", shape=shape,
          hiddens=hiddens, valid_lengths=[int(v) for v in lengths.tolist()],
          max_abs_err=err_b, errors=errs_b, tolerance=f"{tol_b} x max(1, max|plain|) each",
-         ms=ms_b, serving_form_ms_same_shape=ms_b_serving,
-         plain_ms=plain_ms_b, library_ms=lib_f, library="cuDNN nn.LSTM forward, training mode",
+         ms=ms_b, ns_per_step=ms_b * 1e6 / T, serving_form_ms_same_shape=ms_b_serving,
+         plan=plan["recurrence"], clocks_sm_power_draw_limit=clock_b, plain_ms=plain_ms_b, library_ms=lib_f, library="cuDNN nn.LSTM forward, training mode",
          bound_ms=bb_ms, bound_by=bb_by, flops=flops_b, bytes=bytes_b, launches_per_step=4)
     emit("kernels", kernel="lstm_backward", shape=shape, hiddens=hiddens,
          max_abs_err_dgates=err_dg, scale_dgates=scale_dg, max_abs_err_dw=err_dw, scale_dw=scale_dw,
-         tolerance=f"{tol_c} x max|plain| each", ms=ms_c, plain_ms=plain_ms_c,
+         tolerance=f"{tol_c} x max|plain| each", ms=ms_c, ns_per_step=ms_c * 1e6 / T,
+         walk_ms=split_c["walk_ms"], dw_ms=split_c["dw_ms"],
+         plan=plan["backward"], clocks_sm_power_draw_limit=clock_c, plain_ms=plain_ms_c,
          library_ms=lib_fb - lib_f, library="cuDNN nn.LSTM (forward+backward) - forward",
          library_forward_ms=lib_f, library_forward_backward_ms=lib_fb,
          bound_ms=bc_ms, bound_by=bc_by, flops=flops_c, bytes=bytes_c, launches_per_step=4)
+    emit("kernels_summary", kernel="lstm_backward", part="dw", shape=shape, dw_ms=split_c["dw_ms"],
+         dw_bound_ms=dwb_ms, dw_bound_by=dwb_by)
     per_step = 4  # 2 layers x (main pass + DAT pass)
     rec_b = {"ms": per_step * ms_b, "plain_ms": per_step * plain_ms_b, "library_ms": per_step * lib_f,
-             "bound_ms": per_step * bb_ms, "bound_by": bb_by, "max_abs_err": err_b}
+             "bound_ms": per_step * bb_ms, "bound_by": bb_by, "max_abs_err": err_b,
+             "ns_per_step": ms_b * 1e6 / T}
     rec_c = {"ms": per_step * ms_c, "plain_ms": per_step * plain_ms_c,
              "library_ms": per_step * (lib_fb - lib_f), "bound_ms": per_step * bc_ms,
-             "bound_by": bc_by, "max_abs_err": max(err_dg, err_dw)}
+             "bound_by": bc_by, "max_abs_err": max(err_dg, err_dw), "ns_per_step": ms_c * 1e6 / T,
+             "walk_ms": per_step * split_c["walk_ms"], "dw_ms": per_step * split_c["dw_ms"]}
     return rec_b, rec_c
 
 
@@ -1010,7 +1046,7 @@ def main() -> int:
     libs = build.build()
     ptxas = ptxas_summary(build.ptxas_report)
     emit("build", seconds=time.perf_counter() - t0, libraries=libs, ptxas=ptxas)
-    for lib in ("resblock", "resblock_int8"):
+    for lib in ("resblock", "resblock_int8", "lstm", "lstm_bwd"):
         spills = [e["function"] for e in ptxas[lib] if e["spill_store_bytes"] or e["spill_load_bytes"]]
         check(len(ptxas[lib]) > 1 and not spills, f"{lib}: ptxas spills in {spills}")
 
@@ -1081,13 +1117,15 @@ def main() -> int:
          "launches": launches["lstm_recurrence"], "max_abs_err": rec_b["max_abs_err"],
          "ms": rec_b["ms"], "plain_ms": rec_b["plain_ms"], "bound_ms": rec_b["bound_ms"],
          "bound_by": rec_b["bound_by"], "library_ms": rec_b["library_ms"],
+         "ns_per_step": rec_b["ns_per_step"],
          # its training form, per train step (4 launches), on the training path
          "training_form": {"launches": train_launches["lstm_recurrence_training"], **rec_b_train}},
         {"name": "lstm_backward", **common, "source": "styler_tpu_torch/csrc/lstm_bwd.cu",
          "replaces": "styler_tpu/ops/pallas_lstm.py:169",
          "launches": train_launches["lstm_backward"], "max_abs_err": rec_c["max_abs_err"],
          "ms": rec_c["ms"], "plain_ms": rec_c["plain_ms"], "bound_ms": rec_c["bound_ms"],
-         "bound_by": rec_c["bound_by"], "library_ms": rec_c["library_ms"]},
+         "bound_by": rec_c["bound_by"], "library_ms": rec_c["library_ms"],
+         "ns_per_step": rec_c["ns_per_step"], "walk_ms": rec_c["walk_ms"], "dw_ms": rec_c["dw_ms"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -3,18 +3,22 @@
 Kernels B and C of the port. Kernel B replaces the forward Pallas TPU
 kernel ``styler_tpu/ops/pallas_lstm.py:lstm_recurrence_pallas``
 (``_run_forward``/``_fwd_kernel``) with the hand-written CUDA kernel
-``csrc/lstm.cu``: one CTA per sequence runs all T steps with w_hh
-resident in shared memory and h/c on chip. Kernel C replaces its BPTT
-backward (``_run_backward``/``_bwd_kernel``) with ``csrc/lstm_bwd.cu``:
-a reverse walk of the same shape that emits d(gates) and carries dh/dc
-on chip, followed by a tiled product that forms dW_hh over time and
-batch. ``LSTMRecurrence`` pairs the two as one differentiable function,
-as the reference's ``custom_vjp`` does.
+``csrc/lstm.cu``: one CTA per sequence runs all T steps with w_hh on
+chip (in registers up to Hp = 96) and h/c on chip, one barrier a step.
+Kernel C replaces its BPTT backward (``_run_backward``/``_bwd_kernel``)
+with ``csrc/lstm_bwd.cu``: a reverse walk of the same shape that emits
+d(gates) and carries dh/dc on chip, followed by a tiled product that
+forms dW_hh over time and batch rows, split into groups of rows and
+summed in a fixed order. ``LSTMRecurrence`` pairs the two as one
+differentiable function, as the reference's ``custom_vjp`` does.
 
 One launch covers several independent recurrences of different widths,
 each zero-padded to a common hidden size Hp (exact: padded units stay 0
 in h, c, d(gates) and dW, as in the Pallas kernel's own lane padding).
-Source notes, bounds and designs: see the headers of the two sources.
+``lstm_plan`` chooses each launch's instance, threads and dW split from
+Hp (and S, B) alone; the sources size its shared memory, and
+``lstm_launch_plan`` adds what the built kernels report. Source notes,
+bounds and designs: see the headers of the two sources.
 
 Layout (all float32, contiguous):
     gates [S, B, T, 4*Hp]  input gates x @ w_ih.T + b_ih + b_hh, torch
@@ -119,14 +123,100 @@ def lstm_backward_plain(
     return torch.stack(dgates, dim=2), dw
 
 
+#: the kernels' plan instances, in the index order the sources use
+INSTANCES = ("registers", "shared", "global")
+MAX_HP = 256
+#: the widest W (Hp rounded up to 8) of each instance class. The register
+#: instances hold W weights a thread up to 96; the shared instance's padded
+#: weight copy fits one block's shared memory up to 120 for the recurrence
+#: and 112 for the walk, whose d(gates) buffer is larger; where it fits, it
+#: beats reading w_t (on an H100 at Hp = 104 and 112, 1.5-1.9x for the
+#: recurrence and 4-6x for the walk: ``tools/lstm_steps.py``'s width
+#: sweep). The sources size each launch's shared memory and refuse one
+#: that does not fit.
+REGISTER_WIDTH_MAX = 96
+SHARED_WIDTH_MAX = {"recurrence": 120, "backward": 112}
+DW_TR = 64  # dW tile columns (DW_TR in lstm_bwd.cu)
+#: CTAs the dW product's batch-row split aims at: five per SM of a 132-SM
+#: H100. Fixed, so the split, and with it dW's order of summation, is the
+#: same on every card.
+DW_TARGET_CTAS = 660
+
+_forced = {"instance": None}
+
+
+def _width(hp: int) -> int:
+    return -(-hp // 8) * 8
+
+
+def lstm_plan(hp: int, S: int = 1, B: int = 1, dw_splits: int = None) -> dict:
+    """The launch plan of kernels B and C at width ``hp`` for S*B
+    sequences, chosen from ``hp`` alone, the same way on every card:
+
+    - ``recurrence`` and ``backward`` (the walk): instance ``registers``
+      while W = hp rounded up to 8 is at most REGISTER_WIDTH_MAX (each
+      thread keeps its W weights in registers), else ``shared`` up to
+      SHARED_WIDTH_MAX (the weights copied into shared memory), else
+      ``global`` (read from w_t); threads 4*W, S*B CTAs;
+    - the dW product: a [TJ, 64] tile (TJ = hp rounded up to 16, or the
+      half of it above 128), the grid, and the batch rows split into
+      ``dw_splits`` groups of ``dw_rows_per_split`` so about
+      DW_TARGET_CTAS CTAs run.
+
+    ``dw_splits`` overrides the split (timing only, through
+    ``lstm_backward_part``) and ``force_lstm_plan`` the instance (sweeps
+    only); a forced instance that does not take ``hp`` raises ValueError.
+    ``lstm_launch_plan`` adds the shared memory and registers the built
+    kernels report for the plan."""
+    if not 1 <= hp <= MAX_HP:
+        raise ValueError(f"Hp = {hp}: the LSTM kernels take 1 <= Hp <= {MAX_HP}")
+    w = _width(hp)
+    out = {"hp": hp, "width": w}
+    for kernel in ("recurrence", "backward"):
+        inst = _forced["instance"] or (
+            "registers" if w <= REGISTER_WIDTH_MAX else
+            "shared" if w <= SHARED_WIDTH_MAX[kernel] else "global")
+        if inst == "registers" and w > REGISTER_WIDTH_MAX:
+            raise ValueError(f"Hp = {hp}: no register instance above width {REGISTER_WIDTH_MAX}")
+        if inst == "shared" and w > SHARED_WIDTH_MAX[kernel]:
+            raise ValueError(f"Hp = {hp}: the {kernel} weights do not fit shared memory")
+        out[kernel] = {"instance": inst, "threads": 4 * w, "ctas": S * B}
+    n_jt = -(-hp // 128)
+    tj = -(-(-(-hp // n_jt)) // 16) * 16
+    n_rt = -(-4 * hp // DW_TR)
+    B = max(B, 1)
+    if dw_splits is not None and dw_splits < 1:
+        raise ValueError("dw_splits must be >= 1")
+    splits = dw_splits or -(-DW_TARGET_CTAS // (n_rt * n_jt * S))
+    rows = -(-B // min(splits, B))
+    splits = -(-B // rows)
+    out["backward"].update(
+        dw_tile=[tj, DW_TR], dw_splits=splits, dw_rows_per_split=rows,
+        dw_grid=[n_rt, n_jt, S * splits], dw_threads=4 * tj,
+    )
+    return out
+
+
+def force_lstm_plan(instance: str = None) -> None:
+    """Sweeps only: run every launch on ``instance`` (one of INSTANCES);
+    no argument restores the plan's own choice."""
+    if instance is not None and instance not in INSTANCES:
+        raise ValueError(f"instance must be one of {INSTANCES}")
+    _forced["instance"] = instance
+
+
 def _library():
     lib = build.load("lstm")
     if not getattr(lib, "_styler_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.styler_lstm_recurrence.argtypes = [p, p, p, i, i, i, i, p]
+        lib.styler_lstm_recurrence.argtypes = [p, p, p, i, i, i, i, i, p]
         lib.styler_lstm_recurrence.restype = ctypes.c_int
-        lib.styler_lstm_recurrence_train.argtypes = [p, p, p, p, p, i, i, i, i, p]
+        lib.styler_lstm_recurrence_train.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
         lib.styler_lstm_recurrence_train.restype = ctypes.c_int
+        lib.styler_lstm_plan.argtypes = [i, i, i, p]
+        lib.styler_lstm_plan.restype = ctypes.c_int
+        lib.styler_lstm_step_probe.argtypes = [p, i, i, i, p]
+        lib.styler_lstm_step_probe.restype = ctypes.c_int
         lib._styler_bound = True
     return lib
 
@@ -135,12 +225,47 @@ def _library_bwd():
     lib = build.load("lstm_bwd")
     if not getattr(lib, "_styler_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.styler_lstm_backward.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
+        lib.styler_lstm_backward.argtypes = [p] * 8 + [i] * 8 + [p]
         lib.styler_lstm_backward.restype = ctypes.c_int
-        lib.styler_lstm_bwd_smem_bytes.argtypes = [i]
-        lib.styler_lstm_bwd_smem_bytes.restype = ctypes.c_int
+        lib.styler_lstm_bwd_plan.argtypes = [i, i, i, p]
+        lib.styler_lstm_bwd_plan.restype = ctypes.c_int
         lib._styler_bound = True
     return lib
+
+
+def lstm_launch_plan(hp: int, S: int = 1, B: int = 1) -> dict:
+    """``lstm_plan`` with what the built kernels report for it on this
+    card: the shared memory bytes (static and dynamic, sized by the
+    sources) and registers per thread of each form, of the walk and of
+    the dW product. Raises if the kernels' threads differ from the
+    plan's."""
+    plan = lstm_plan(hp, S, B)
+    rec, bwd = plan["recurrence"], plan["backward"]
+    for save, form in ((0, "serving"), (1, "training")):
+        out = (ctypes.c_int * 3)()
+        build.check(_library().styler_lstm_plan(INSTANCES.index(rec["instance"]), hp, save, out),
+                    "LSTM launch plan")
+        if out[0] != rec["threads"]:
+            raise RuntimeError(f"lstm.cu plans {list(out)}, ops/lstm.py {rec}")
+        rec["smem_bytes"], rec[f"registers_{form}"] = out[1], out[2]
+    out = (ctypes.c_int * 6)()
+    build.check(_library_bwd().styler_lstm_bwd_plan(INSTANCES.index(bwd["instance"]), hp,
+                                                    bwd["dw_tile"][0], out), "LSTM backward plan")
+    if [out[0], out[3]] != [bwd["threads"], bwd["dw_threads"]]:
+        raise RuntimeError(f"lstm_bwd.cu plans {list(out)}, ops/lstm.py {bwd}")
+    bwd.update(smem_bytes=out[1], registers=out[2], dw_smem_bytes=out[4], dw_registers=out[5])
+    return plan
+
+
+def lstm_step_probe(T: int, threads: int, device, ctas: int = 8) -> torch.Tensor:
+    """Measurement only: ``ctas`` CTAs of ``threads`` threads run T empty
+    steps (one float4 broadcast from shared memory, one store, one
+    barrier each), the per-step latency floor of a one-CTA recurrence."""
+    out = torch.empty(ctas, device=device)
+    build.check(_library().styler_lstm_step_probe(
+        out.data_ptr(), ctas, T, threads, torch.cuda.current_stream(out.device).cuda_stream
+    ), "LSTM step probe")
+    return out
 
 
 def _check_cuda(tensors: Dict[str, Tuple[torch.Tensor, tuple]]) -> torch.device:
@@ -161,16 +286,18 @@ def lstm_recurrence(gates: torch.Tensor, w_t: torch.Tensor, save: bool = False):
     """h [S, B, T, Hp] of S*B independent LSTM recurrences (layout in the
     module docstring); with ``save=True`` (the training form) also c and
     the activated gates: (h, c, acts). A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel once or raises."""
+    version; a CUDA tensor launches the kernel once, on the instance
+    ``lstm_plan`` chooses, or raises."""
     if gates.device.type == "cpu":
         return lstm_recurrence_plain(gates, w_t, save)
     if gates.dim() != 4 or w_t.dim() != 3:
         raise ValueError("gates must be [S, B, T, 4*Hp] and w_t [S, Hp, 4*Hp]")
     S, B, T, G = gates.shape
     hp = G // 4
-    if G != 4 * hp or hp > 256:
-        raise ValueError(f"gates {tuple(gates.shape)}: last axis must be 4*Hp, Hp <= 256")
+    if G != 4 * hp or not 1 <= hp <= MAX_HP:
+        raise ValueError(f"gates {tuple(gates.shape)}: last axis must be 4*Hp, Hp <= {MAX_HP}")
     dev = _check_cuda({"gates": (gates, gates.shape), "w_t": (w_t, (S, hp, G))})
+    instance = INSTANCES.index(lstm_plan(hp, S, B)["recurrence"]["instance"])
     h = torch.empty(S, B, T, hp, device=dev, dtype=torch.float32)
     stream = torch.cuda.current_stream(dev).cuda_stream
     if save:
@@ -178,11 +305,11 @@ def lstm_recurrence(gates: torch.Tensor, w_t: torch.Tensor, save: bool = False):
         acts = torch.empty_like(gates)
         rc = _library().styler_lstm_recurrence_train(
             gates.data_ptr(), w_t.data_ptr(), h.data_ptr(), c.data_ptr(), acts.data_ptr(),
-            S, B, T, hp, stream,
+            S, B, T, hp, instance, stream,
         )
     else:
         rc = _library().styler_lstm_recurrence(
-            gates.data_ptr(), w_t.data_ptr(), h.data_ptr(), S, B, T, hp, stream
+            gates.data_ptr(), w_t.data_ptr(), h.data_ptr(), S, B, T, hp, instance, stream
         )
     build.check(rc, "LSTM recurrence kernel")
     lstm_recurrence.launches += 1
@@ -196,8 +323,6 @@ def lstm_recurrence(gates: torch.Tensor, w_t: torch.Tensor, save: bool = False):
 lstm_recurrence.launches = 0
 lstm_recurrence.training_launches = 0
 
-_SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
-
 
 def lstm_backward(
     dh_out: torch.Tensor, acts: torch.Tensor, c: torch.Tensor, h: torch.Tensor,
@@ -206,7 +331,9 @@ def lstm_backward(
     """BPTT through the recurrence: (dgates [S, B, T, 4*Hp], dw_t [S, Hp,
     4*Hp]) from the gradient of h and what the training form of
     ``lstm_recurrence`` saved. A CPU tensor takes the plain version; a CUDA
-    tensor launches kernel C once or raises."""
+    tensor launches kernel C once (the walk, the dW product and, when the
+    plan splits the batch rows, the fixed-order sum of the partials) or
+    raises."""
     if dh_out.device.type == "cpu":
         return lstm_backward_plain(dh_out, acts, c, h, w_t)
     if dh_out.dim() != 4:
@@ -217,19 +344,40 @@ def lstm_backward(
         "dh_out": (dh_out, (S, B, T, hp)), "acts": (acts, (S, B, T, G)),
         "c": (c, (S, B, T, hp)), "h": (h, (S, B, T, hp)), "w_t": (w_t, (S, hp, G)),
     })
-    lib = _library_bwd()
-    if hp > 256 or lib.styler_lstm_bwd_smem_bytes(hp) > _SMEM_LIMIT:
-        raise ValueError(f"Hp = {hp}: w_hh does not fit one block's shared memory")
     dgates = torch.empty(S, B, T, G, device=dev, dtype=torch.float32)
     dw_t = torch.empty(S, hp, G, device=dev, dtype=torch.float32)
-    rc = lib.styler_lstm_backward(
-        dh_out.data_ptr(), acts.data_ptr(), c.data_ptr(), h.data_ptr(), w_t.data_ptr(),
-        dgates.data_ptr(), dw_t.data_ptr(), S, B, T, hp,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    build.check(rc, "LSTM backward kernel")
+    _launch_backward(3, dh_out, acts, c, h, w_t, dgates, dw_t)
     lstm_backward.launches += 1
     return dgates, dw_t
+
+
+def _launch_backward(parts, dh_out, acts, c, h, w_t, dgates, dw_t, dw_splits=None) -> None:
+    """Kernel C's walk (``parts & 1``: writes dgates) and dW product
+    (``parts & 2``: reads dgates, writes dw_t) on checked CUDA tensors,
+    the batch rows of dW split as the plan says or in ``dw_splits``."""
+    S, B, T, hp = dh_out.shape
+    plan = lstm_plan(hp, S, B, dw_splits)["backward"]
+    splits = plan["dw_splits"]
+    partials = (torch.empty(S, splits, hp, 4 * hp, device=dh_out.device, dtype=torch.float32)
+                if splits > 1 and parts & 2 else None)
+    rc = _library_bwd().styler_lstm_backward(
+        dh_out.data_ptr(), acts.data_ptr(), c.data_ptr(), h.data_ptr(), w_t.data_ptr(),
+        dgates.data_ptr(), dw_t.data_ptr(), None if partials is None else partials.data_ptr(),
+        S, B, T, hp, INSTANCES.index(plan["instance"]), plan["dw_tile"][0], splits, parts,
+        torch.cuda.current_stream(dh_out.device).cuda_stream,
+    )
+    build.check(rc, "LSTM backward kernel")
+
+
+def lstm_backward_part(part: str, dh_out, acts, c, h, w_t, dgates, dw_t,
+                       dw_splits: int = None) -> None:
+    """Measurement only, not counted as a launch of kernel C: run its
+    ``"walk"`` alone (writes ``dgates``) or its ``"dw"`` product alone
+    (reads ``dgates``, writes ``dw_t``), on the tensors of an earlier
+    ``lstm_backward`` call, so the two can be timed apart; ``dw_splits``
+    sets the dW product's batch-row split in place of the plan's."""
+    _launch_backward({"walk": 1, "dw": 2}[part], dh_out, acts, c, h, w_t, dgates, dw_t,
+                     dw_splits)
 
 
 lstm_backward.launches = 0

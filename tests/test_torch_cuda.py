@@ -14,8 +14,13 @@ import torch
 
 from styler_tpu_torch.core.device import resolve_device
 from styler_tpu_torch.ops.lstm import (
+    INSTANCES,
     LSTMRecurrence,
+    force_lstm_plan,
     lstm_backward,
+    lstm_launch_plan,
+    lstm_plan,
+    lstm_step_probe,
     lstm_backward_plain,
     lstm_recurrence,
     lstm_recurrence_plain,
@@ -500,3 +505,167 @@ def test_lstm_backward_rejects_bad_input(cuda_device):
         lstm_backward(dh, acts[..., :-1], c, h, w)
     with pytest.raises(ValueError):
         lstm_backward(dh.transpose(1, 2), acts, c, h, w)
+
+
+# Every plan class of kernels B and C (registers: Hp 8..96; shared
+# memory: 104; weights read from w_t: 128, 256) at T from one step to
+# more than 256 and B from 1 to 16. Two recurrences, the second 5 units
+# narrower and padded, so padding runs at every width.
+LSTM_PLAN_HPS = (8, 24, 64, 80, 96, 104, 128, 256)
+LSTM_PLAN_TS = (1, 2, 33, 256, 300)
+LSTM_PLAN_BS = (1, 3, 16)
+
+
+def _plan_problem(hp, B, T, device, seed=8):
+    hiddens = (hp, max(1, hp - 5))
+    return (*_packed_problem(np.random.default_rng(seed), B, T, hiddens, device), hiddens)
+
+
+def _check_forward(g, w, hiddens):
+    """Both forms against the plain version at the card tolerances; h of
+    the two forms bit-equal; padded units of h and c exactly 0."""
+    h, c, acts = lstm_recurrence(g, w, save=True)
+    h_s = lstm_recurrence(g, w)
+    torch.cuda.synchronize()
+    h_p, c_p, acts_p = lstm_recurrence_plain(g, w, save=True)
+    assert (h_s - h_p).abs().max().item() < 2e-5
+    for got, want in ((h, h_p), (c, c_p), (acts, acts_p)):
+        assert (got - want).abs().max().item() <= 5e-5 * max(want.abs().max().item(), 1.0)
+    assert torch.equal(h_s, h)
+    for s, H in enumerate(hiddens):
+        assert torch.all(h[s, ..., H:] == 0.0) and torch.all(c[s, ..., H:] == 0.0)
+
+
+def _check_backward(g, w, dh, hiddens):
+    """Kernel C against the plain version (1e-4 of the scale), padded
+    units exactly 0, two runs bit-equal."""
+    h, c, acts = lstm_recurrence_plain(g, w, save=True)
+    dg, dw = lstm_backward(dh, acts, c, h, w)
+    torch.cuda.synchronize()
+    dg_p, dw_p = lstm_backward_plain(dh, acts, c, h, w)
+    assert (dg - dg_p).abs().max().item() <= 1e-4 * max(dg_p.abs().max().item(), 1.0)
+    assert (dw - dw_p).abs().max().item() <= 1e-4 * max(dw_p.abs().max().item(), 1.0)
+    S, B, T, hp = dh.shape
+    for s, H in enumerate(hiddens):
+        assert torch.all(dg[s].reshape(B, T, 4, hp)[..., H:] == 0.0)
+        assert torch.all(dw[s, H:] == 0.0) and torch.all(dw[s].reshape(hp, 4, hp)[..., H:] == 0.0)
+    dg2, dw2 = lstm_backward(dh, acts, c, h, w)
+    assert torch.equal(dg, dg2) and torch.equal(dw, dw2)
+
+
+@pytest.mark.parametrize("B", LSTM_PLAN_BS)
+@pytest.mark.parametrize("T", LSTM_PLAN_TS)
+@pytest.mark.parametrize("hp", LSTM_PLAN_HPS)
+def test_lstm_plan_forward_matches_plain(cuda_device, hp, T, B):
+    g, w, _, hiddens = _plan_problem(hp, B, T, cuda_device)
+    _check_forward(g, w, hiddens)
+
+
+@pytest.mark.parametrize("B", LSTM_PLAN_BS)
+@pytest.mark.parametrize("T", LSTM_PLAN_TS)
+@pytest.mark.parametrize("hp", LSTM_PLAN_HPS)
+def test_lstm_plan_backward_matches_plain(cuda_device, hp, T, B):
+    g, w, dh, hiddens = _plan_problem(hp, B, T, cuda_device)
+    _check_backward(g, w, dh, hiddens)
+
+
+@pytest.mark.parametrize("instance,hp,B,T", [
+    (inst, hp, B, T) for inst in INSTANCES
+    for hp, B, T in ((8, 3, 33), (80, 16, 256), (97, 2, 40), (112, 1, 300))
+    if inst != "registers" or hp <= 96
+])
+def test_lstm_every_instance_matches_plain(cuda_device, instance, hp, B, T):
+    """Each instance forced at the widths it takes (the register one up to
+    96), against the plain version."""
+    g, w, dh, hiddens = _plan_problem(hp, B, T, cuda_device, seed=9)
+    force_lstm_plan(instance=instance)
+    try:
+        assert lstm_plan(hp, 2, B)["backward"]["instance"] == instance
+        _check_forward(g, w, hiddens)
+        _check_backward(g, w, dh, hiddens)
+    finally:
+        force_lstm_plan()
+
+
+def test_lstm_instance_that_does_not_fit_raises(cuda_device):
+    g, w, dh, _ = _plan_problem(128, 1, 4, cuda_device)
+    force_lstm_plan(instance="shared")
+    try:
+        with pytest.raises(ValueError, match="shared memory"):
+            lstm_recurrence(g, w)
+    finally:
+        force_lstm_plan()
+
+
+@pytest.mark.parametrize("B,splits", [(5, 2), (5, 3), (16, 6), (17, 4), (3, 3)])
+def test_lstm_dw_split_matches_plain(cuda_device, B, splits):
+    """dW's batch-row split at B that the split does not divide (set
+    through the timing helper): the same dW as one split to the product's
+    rounding, bit-equal across runs."""
+    from styler_tpu_torch.ops.lstm import lstm_backward_part
+
+    g, w, dh, hiddens = _plan_problem(80, B, 45, cuda_device, seed=10)
+    assert lstm_plan(80, 2, B, dw_splits=splits)["backward"]["dw_splits"] == splits
+    _check_backward(g, w, dh, hiddens)
+    h, c, acts = lstm_recurrence_plain(g, w, save=True)
+    dg, _ = lstm_backward(dh, acts, c, h, w)
+    dw_split, dw_again, dw_one = (torch.full_like(w, float("nan")) for _ in range(3))
+    for out, n in ((dw_split, splits), (dw_again, splits), (dw_one, 1)):
+        lstm_backward_part("dw", dh, acts, c, h, w, dg, out, dw_splits=n)
+    torch.cuda.synchronize()
+    assert torch.equal(dw_split, dw_again)
+    assert (dw_split - dw_one).abs().max().item() <= 1e-5 * dw_one.abs().max().item()
+
+
+def test_lstm_dw_split_of_the_plan_at_uneven_batch(cuda_device):
+    """The plan's own split where it does not divide B: 8 recurrences at
+    Hp = 80 and B = 19 split into 10 groups of 2 rows, the last of 1."""
+    hiddens = (80, 80, 75, 75, 64, 64, 64, 64)
+    g, w, dh = _packed_problem(np.random.default_rng(12), 19, 45, hiddens, cuda_device)
+    bwd = lstm_plan(80, 8, 19)["backward"]
+    assert (bwd["dw_splits"], bwd["dw_rows_per_split"]) == (10, 2)
+    _check_backward(g, w, dh, hiddens)
+
+
+@pytest.mark.parametrize("hp", [1, 8, 9, 80, 96, 97, 104, 112, 113, 120, 121, 128, 255, 256])
+def test_lstm_launch_plan_at_boundary_widths(cuda_device, hp):
+    """The kernels' own threads agree with the plan (lstm_launch_plan
+    raises otherwise), their shared memory fits one block, and they
+    report registers."""
+    plan = lstm_launch_plan(hp, 8, 16)
+    assert plan == {**lstm_plan(hp, 8, 16), "recurrence": plan["recurrence"],
+                    "backward": plan["backward"]}
+    rec, bwd = plan["recurrence"], plan["backward"]
+    for smem in (rec["smem_bytes"], bwd["smem_bytes"], bwd["dw_smem_bytes"]):
+        assert 0 < smem <= 232448  # what one block may use on sm_90
+    if hp == 80:  # h[2][4 slices of 20], dg[2][16 slices of 20], a 4-chunk ring of 32 steps
+        assert (rec["smem_bytes"], bwd["smem_bytes"]) == (2 * 4 * 20 * 4, 2 * 16 * 20 * 4)
+        assert bwd["dw_smem_bytes"] == 4 * 32 * (80 + 64) * 4
+    for regs in (rec["registers_serving"], rec["registers_training"], bwd["registers"],
+                 bwd["dw_registers"]):
+        assert 0 < regs <= 255
+    if rec["instance"] == "registers":  # W weights of the thread stay in registers
+        assert rec["registers_serving"] >= plan["width"]
+
+
+def test_lstm_backward_parts_match_the_whole(cuda_device):
+    """The walk alone and the dW product alone (timing only) give what one
+    lstm_backward call gives, bit for bit, and count no launch."""
+    from styler_tpu_torch.ops.lstm import lstm_backward_part
+
+    g, w, dh, _ = _plan_problem(80, 3, 40, cuda_device, seed=11)
+    h, c, acts = lstm_recurrence_plain(g, w, save=True)
+    dg, dw = lstm_backward(dh, acts, c, h, w)
+    before = lstm_backward.launches
+    dg2, dw2 = torch.full_like(dg, float("nan")), torch.full_like(dw, float("nan"))
+    lstm_backward_part("walk", dh, acts, c, h, w, dg2, dw2)
+    lstm_backward_part("dw", dh, acts, c, h, w, dg2, dw2)
+    torch.cuda.synchronize()
+    assert torch.equal(dg, dg2) and torch.equal(dw, dw2)
+    assert lstm_backward.launches == before
+
+
+def test_lstm_step_probe_runs(cuda_device):
+    out = lstm_step_probe(16, 320, cuda_device)
+    torch.cuda.synchronize()
+    assert out.shape == (8,) and torch.all(out == 0.0)
