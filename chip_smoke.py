@@ -27,7 +27,7 @@ Phases, each printing one JSON line:
              its dW product alone, and a ``kernels_summary`` line the dW
              product's own bound beside its time (worked out, not
              measured, so kept off the measured ``kernels`` records).
-             (Kernel A on the iSTFTNet stages here; on HiFi-GAN's in 6.)
+             (Kernel A on the iSTFTNet stages here; on HiFi-GAN's in 7.)
              Each kernel A line also carries the launch plan of its bf16
              mode (tile [BM, BN], grid and shared memory of the largest-halo
              conv, the fewest CTAs per SM over the stage's convs, every
@@ -43,7 +43,50 @@ Phases, each printing one JSON line:
 5. card_vs_cpu — one request again with ``device="cpu"`` (plain versions);
              durations and mels at f32 tolerance, waveforms by log-mel
              distance (bf16), the f32 vocoder by SNR.
-6. hifigan_kernels — ``load_synthesizer(cfg, vocoder_arch="HiFi-GAN")``;
+6. the rest of the Synthesizer, on the same iSTFTNet synthesizer at the
+   default buckets, each phase with its launches of kernels A and B (and
+   a check that kernel C, B's training form and the int8 kernel never
+   launched). Each phase that runs the kernels first makes one untimed
+   call in which every call of kernel A and kernel B is recorded with its
+   inputs and output (``Capture``) and held against its plain version on
+   those inputs at phase 3's tolerances (``hold_kernels``): kernel A at 32
+   grid rows (batch, mix), 10 (inspect) and 4 (long), kernel B's serving
+   form at B = 16, 4, 2 and 1 on the rows' own ragged gates. Then the
+   counted, timed call:
+   warmup  — ``synth.warmup()``: 25 forwards, seconds;
+   batch   — ``synthesize_batch`` over 16 distinct rows (BATCH_SENTENCES x
+             two references and speakers), all in one (src, mel) bucket
+             pair, so each row's request alone runs at the batch's buckets:
+             wall ms, audio seconds per wall second; every row's shapes
+             and finiteness; every row, clean and noisy, against
+             ``synthesize()`` of its request (``hold_request``): the same
+             mel_len and rounded durations, log-durations, f0 and energy
+             (before ``bucketize``) within 1e-4 of their scale, waveforms by
+             log-mel MAE < 0.1, and the mel within 2e-4 + 1e-4 rel where
+             the two fell into the same pitch and energy bins; at least
+             half of the 32 mels must be held;
+   profile_batch — the same call under ``torch.profiler`` (device busy,
+             idle share, kernel rows);
+   long    — a 335-phoneme sentence, two chunks of the 256 bucket: chunk
+             count, lengths (the sum of the chunks'), finiteness, wall ms;
+   inspect — the ten-row grid of one sentence: titles, finiteness, the
+             float16 values against the same grid left in f32 (half ulp),
+             its ``T+D+P+E+S`` / ``T+D+P+E+S+N`` rows against
+             ``synthesize``'s clean / noisy outputs as in batch, the mel
+             within float16's half ulp of the scale (+ 1e-4), wall ms;
+   mix     — ``mix_and_match`` of two sentences x two references: 32
+             titles, ``00000`` / ``11111`` against the two single requests
+             (same checks), wall ms and the decode bucket M_comb.
+   A row and its single request run other algorithms (other batch
+   sizes), so a prediction within f32 rounding of a pitch or energy bin
+   edge can take the other bin in one of them (one flip moved a
+   1024-frame mel by 0.12); such a row's mel is reported with the frames
+   that differ, and everything else of the row is held;
+   residual_off — the acoustic forward at B = 1, buckets (128, 1024),
+             with and without the residual decode: CUDA-event ms of each
+             and its device busy ms (torch.profiler), the clean mels equal
+             within 2e-4 + 1e-4 rel.
+7. hifigan_kernels — ``load_synthesizer(cfg, vocoder_arch="HiFi-GAN")``;
              kernel A (bf16 and f32) and the int8 kernel against their plain
              versions on the four HiFi-GAN stage inputs of the 2B batch of
              1024-frame mels ([2, 8192, 256] .. [2, 262144, 32]), with times,
@@ -53,24 +96,24 @@ Phases, each printing one JSON line:
              whose branches have
              dilations of their own (branch_dilations), kernel against
              plain in bf16 and int8.
-7. main_hifigan — 3 requests after a warm-up through HiFi-GAN; kernel A
+8. main_hifigan — 3 requests after a warm-up through HiFi-GAN; kernel A
              launches 72 times per request, the int8 kernel never; then a
              profiled request (profile_hifigan).
-8. int8    — the same requests with ``STYLER_TPU_INT8_VOCODER=1`` set before
+9. int8    — the same requests with ``STYLER_TPU_INT8_VOCODER=1`` set before
              construction: the int8 kernel 72 times per request, kernel A
              never; a profiled request (profile_int8); log-mel MAE of the
              int8 waveforms against the bf16 ones (fails only above 1.0 or on
              a non-finite result).
-9. hifigan_card_vs_cpu — one HiFi-GAN request against ``device="cpu"``.
-10. train  — writes a 64-utterance example dataset made from a seed to disk
+10. hifigan_card_vs_cpu — one HiFi-GAN request against ``device="cpu"``.
+11. train  — writes a 64-utterance example dataset made from a seed to disk
              and runs ``Trainer(...).fit`` on CUDA from the committed trained
              weights at full width, batch 16, dropout on: one warm-up step and
              three timed ones. Checks the 10 loss components, the gradient
              norm, that every parameter had a gradient and nearly all changed,
              that the BatchNorm statistics moved, and that kernel B's training
              form and kernel C were each launched 4 times per step.
-11. train_profile — one more step under ``torch.profiler``.
-12. train_card_vs_cpu — one step's loss components and every gradient leaf,
+12. train_profile — one more step under ``torch.profiler``.
+13. train_card_vs_cpu — one step's loss components and every gradient leaf,
              without dropout, on the card against ``device="cpu"``.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
@@ -80,6 +123,7 @@ that line is printed. Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -106,6 +150,18 @@ SENTENCES = (
     "Printing, in the only sense with which we are at present concerned, "
     "differs from most if not from all the arts and crafts represented in "
     "the exhibition.",
+)
+# the 16-row batch: these 8 sentences x two references; each sentence has
+# 33 to 64 phonemes, so every row lies in the same src bucket (64)
+BATCH_SENTENCES = (
+    "She sells sea shells by the sea shore every summer morning.",
+    "A gentle breeze carried the scent of rain across the quiet valley.",
+    "Please call me back when you have a moment to talk about the plan.",
+    "The old library kept its rarest books behind a locked glass door.",
+    "We walked along the river until the lights of the town came into view.",
+    "Every student in the class finished the test before the bell rang.",
+    "The train to the coast leaves at seven and arrives just after noon.",
+    "He painted the small wooden boat a bright shade of blue.",
 )
 
 
@@ -394,6 +450,7 @@ def phase_branch_dilations(torch):
 
     ks, dils = (3, 7, 11), ((1, 3), (1, 3, 5), (2, 4, 6))
     B, T, C = 2, 65536, 128
+    n = Launches()
     rng = np.random.default_rng(6)
     dev = torch.device("cuda")
 
@@ -406,15 +463,16 @@ def phase_branch_dilations(torch):
     x = normal((B, T, C), 1.0).to(torch.bfloat16)
     out = {}
     with torch.no_grad():
-        for form, fn, plain, params, tol in (
-            ("bf16", fused_resblock_stage, resblock_stage_plain,
+        for form, fn, counter, plain, params, tol in (
+            ("bf16", fused_resblock_stage, "resblock_stage", resblock_stage_plain,
              [tuple(t.to(torch.bfloat16) if t.dim() == 4 else t for t in b) for b in bp], 3e-2),
-            ("int8", resblock_stage_int8, resblock_stage_int8_plain, quantize_branch_params(bp), INT8_TOL),
+            ("int8", resblock_stage_int8, "resblock_stage_int8", resblock_stage_int8_plain,
+             quantize_branch_params(bp), INT8_TOL),
         ):
-            before = fn.launches
+            n.reset()
             got = fn(x, params, ks, dils)
             torch.cuda.synchronize()
-            launches = fn.launches - before
+            launches = n.read()[counter]
             want = plain(x, params, ks, dils)
             err = (got.float() - want.float()).abs().max().item()
             scale = want.float().abs().max().item()
@@ -645,18 +703,51 @@ def phase_lstm_train(torch, model, cfg, batch_size):
     return rec_b, rec_c
 
 
-def run_requests(torch, synth, ref, spk, cfg, phase, smi, counters):
+class Launches:
+    """The launch counters of every kernel wrapper: ``reset()`` sets them
+    to 0, ``read()`` returns them."""
+
+    def __init__(self):
+        from styler_tpu_torch.ops.lstm import lstm_backward, lstm_recurrence
+        from styler_tpu_torch.ops.resblock import fused_resblock_stage, resblock_stage_int8
+
+        self.fns = {"resblock_stage": (fused_resblock_stage, "launches"),
+                    "resblock_stage_int8": (resblock_stage_int8, "launches"),
+                    "resblock_stage_int8_prep": (resblock_stage_int8, "prep_launches"),
+                    "lstm_recurrence": (lstm_recurrence, "launches"),
+                    "lstm_recurrence_training": (lstm_recurrence, "training_launches"),
+                    "lstm_backward": (lstm_backward, "launches")}
+
+    def reset(self) -> None:
+        for fn, attr in self.fns.values():
+            setattr(fn, attr, 0)
+
+    def read(self) -> dict:
+        return {name: getattr(fn, attr) for name, (fn, attr) in self.fns.items()}
+
+    def check_serving(self, phase: str, a: int, b: int) -> dict:
+        """Kernel A launched ``a`` times and kernel B's serving form ``b``
+        times since ``reset()``; kernel C, B's training form and the int8
+        kernel never."""
+        n = self.read()
+        check(n["resblock_stage"] == a and n["lstm_recurrence"] == b
+              and n["lstm_recurrence_training"] == n["lstm_backward"] == 0
+              and n["resblock_stage_int8"] == n["resblock_stage_int8_prep"] == 0,
+              f"{phase}: launches {n}, expected kernel A {a}, kernel B {b} and no other")
+        return {"resblock_stage": n["resblock_stage"], "lstm_recurrence": n["lstm_recurrence"],
+                "others": 0}
+
+
+def run_requests(torch, synth, ref, spk, cfg, phase, smi):
     """One warm-up request, then the 3 SENTENCES with wall times; checks
-    shapes and finiteness. Returns the outputs and the launches of each
-    counter during the 3 requests."""
+    shapes and finiteness. Returns the outputs and the launches of every
+    counter (``Launches``) during the 3 requests."""
     import numpy as np
 
     synth.synthesize(SENTENCES[0], ref, spk)
     torch.cuda.synchronize()
-    for fn in counters.values():
-        fn.launches = 0
-        if hasattr(fn, "prep_launches"):  # the int8 form's prep pass, one per stage
-            fn.prep_launches = 0
+    n = Launches()
+    n.reset()
     M = cfg.mel_buckets[-1]
     outs = []
     for s in SENTENCES:
@@ -674,10 +765,7 @@ def run_requests(torch, synth, ref, spk, cfg, phase, smi, counters):
         outs.append(out)
         emit(phase, sentence=s, phonemes=int((~out["src_mask"][0]).sum()), mel_len=ml,
              wall_ms=wall_ms, card=smi)
-    launches = {name: fn.launches for name, fn in counters.items()}
-    launches.update({f"{name}_prep": fn.prep_launches for name, fn in counters.items()
-                     if hasattr(fn, "prep_launches")})
-    return outs, launches
+    return outs, n.read()
 
 
 def card_vs_cpu(torch, synth, cpu, g, ref, spk, phase) -> None:
@@ -708,15 +796,415 @@ def card_vs_cpu(torch, synth, cpu, g, ref, spk, phase) -> None:
     # the vocoder in f32 on one mel batch: kernel A's f32 mode against the
     # plain version end to end, exact f32 on both sides
     mel_in = torch.from_numpy(np.stack([c["mel"], c["mel_noisy"]]))
-    for s_ in (synth, cpu):
-        s_.generator.compute_dtype = torch.float32
-    with torch.no_grad():
-        w_card = synth.generator(mel_in.cuda()).cpu().numpy().astype(np.float64)
-        w_cpu = cpu.generator(mel_in).numpy().astype(np.float64)
+    dtypes = [s_.generator.compute_dtype for s_ in (synth, cpu)]
+    try:
+        for s_ in (synth, cpu):
+            s_.generator.compute_dtype = torch.float32
+        with torch.no_grad():
+            w_card = synth.generator(mel_in.cuda()).cpu().numpy().astype(np.float64)
+            w_cpu = cpu.generator(mel_in).numpy().astype(np.float64)
+    finally:
+        for s_, dt in zip((synth, cpu), dtypes):
+            s_.generator.compute_dtype = dt
     snr = float(10 * np.log10((w_cpu ** 2).sum() / max(((w_card - w_cpu) ** 2).sum(), 1e-30)))
     res["wav_f32_vocoder"] = {"snr_db": snr, "min_snr_db": 50.0}
     check(snr > 50.0, f"{phase} f32 vocoder: SNR {snr} dB")
     emit(phase, sentence=SENTENCES[0], **res)
+
+
+class Capture:
+    """Inside ``with Capture(synth) as cap``, every call of kernel A
+    (``fused_resblock_stage``, the iSTFTNet stages) and of kernel B
+    (``lstm_recurrence``, the BiLSTM layers) is recorded with its inputs
+    and its output in ``cap.calls[name]`` as (args, kwargs, output), and
+    every output of ``synth._forward`` in ``cap.forwards``. The calls run
+    as they would without it, so the recorded outputs are the path's own.
+    A phase resets its launch counts after its captured call."""
+
+    def __init__(self, synth):
+        import styler_tpu_torch.ops.lstm as lstm_mod
+        import styler_tpu_torch.vocoder.istft_net as istft_mod
+
+        self.synth = synth
+        self.sites = {"resblock_stage": (istft_mod, "fused_resblock_stage"),
+                      "lstm_recurrence": (lstm_mod, "lstm_recurrence")}
+        self.calls = {name: [] for name in self.sites}
+        self.forwards = []
+
+    @staticmethod
+    def _record(fn, into):
+        # wraps copies the wrapper's counters onto the spy: a wrapper
+        # counts its launches on its module's name for it, which is the
+        # spy while the capture lasts
+        @functools.wraps(fn)
+        def spy(*a, **kw):
+            out = fn(*a, **kw)
+            into.append((a, kw, out))
+            return out
+        return spy
+
+    def __enter__(self):
+        self.saved = {name: getattr(mod, attr) for name, (mod, attr) in self.sites.items()}
+        for name, (mod, attr) in self.sites.items():
+            setattr(mod, attr, self._record(self.saved[name], self.calls[name]))
+        self.synth._forward = self._record(self.synth._forward, self.forwards)
+        return self
+
+    def __exit__(self, *exc):
+        for name, (mod, attr) in self.sites.items():
+            setattr(mod, attr, self.saved[name])
+        del self.synth._forward
+
+
+def hold_kernels(torch, what, cap) -> dict:
+    """Every call of kernel A and kernel B that ``cap`` recorded on a
+    path (the path's own inputs, its own output) against the kernel's
+    plain version on the same inputs, at phase 3's tolerances: kernel A
+    (bf16) 3e-2 x max(1, max|plain|), kernel B 1e-4 x max(1, max|plain|)
+    (|h| < 1, so 1e-4 as in phase 3). Returns each call's shape and error."""
+    from styler_tpu_torch.ops.lstm import lstm_recurrence_plain
+    from styler_tpu_torch.ops.resblock import resblock_stage_plain
+
+    out = {}
+    for name, plain, tol in (("resblock_stage", resblock_stage_plain, 3e-2),
+                             ("lstm_recurrence", lstm_recurrence_plain, 1e-4)):
+        check(len(cap.calls[name]) > 0, f"{what}: no call of {name} to hold")
+        out[name] = []
+        for a, kw, got in cap.calls[name]:
+            with torch.no_grad():
+                want = plain(*a, **kw)
+            err = (got.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            limit = tol * max(scale, 1.0)
+            check(bool(torch.isfinite(got).all()) and err <= limit,
+                  f"{what}: {name} at {list(a[0].shape)}: max |kernel - plain| {err} > {limit}")
+            out[name].append({"shape": list(a[0].shape), "max_abs_err": err, "out_scale": scale,
+                              "tolerance": limit})
+            del want
+    return out
+
+
+def bin_flips(np, bins, a, b) -> dict:
+    """The frames where two results of one request with the same
+    durations fall into different pitch or energy bins of the embedding
+    lookups (``bucketize`` of the f32 predictions; ``bins`` = the model's
+    (pitch, energy) edges). Empty where they agree."""
+    out = {}
+    for key, edges in zip(("f0", "energy"), bins):
+        frames = np.nonzero(np.searchsorted(edges, a[key]) != np.searchsorted(edges, b[key]))[0]
+        if len(frames):
+            out[f"{key}_bin_frames"] = frames.tolist()
+    return out
+
+
+def uncast(synth, fn):
+    """``fn()`` with the Synthesizer's output compression cut to the trim:
+    the same computation, its values left in f32 (the wav scaled by 32767,
+    unrounded, which the unpacking divides back)."""
+    hop = synth.config.hop_length
+    synth._compress = lambda mel, wav, p, e, n: (mel[:, :n], wav[:, : n * hop] * 32767.0, p[:, :n], e[:, :n])
+    try:
+        return fn()
+    finally:
+        del synth._compress
+
+
+def near(np, a, b):
+    """max |a - b| and whether every element lies within the f32 bound of
+    a mel, 2e-4 + 1e-4 x |b| (``tests/test_synthesis.py:135-147``)."""
+    diff = np.abs(a - b)
+    return float(diff.max()), bool(np.all(diff <= 2e-4 + 1e-4 * np.abs(b)))
+
+
+def near_scale(np, a, b):
+    """max |a - b| and whether it is within 1e-4 of b's scale,
+    max(1, max |b|): the f32 bound of a prediction (f0 is in Hz, so an
+    element's own size says nothing of its rounding)."""
+    err = float(np.abs(a - b).max())
+    return err, err <= 1e-4 * max(1.0, float(np.abs(b).max()))
+
+
+def hold_request(np, frontend, bins, what, got, want, f16=False, durations=None) -> dict:
+    """A row of a batch, grid or mix (``got``) against the single request
+    it must equal (``want``, from ``synthesize``). Fails unless:
+
+    - the mel_len is the same and, with ``durations`` = (rounded
+      durations of the row, of the request, over its phonemes), every
+      phoneme's rounded duration is the same;
+    - the continuous predictions, which no rounding step feeds, agree
+      within 1e-4 of their scale (``near_scale``): the log-durations (with ``durations``,
+      given as ``got["log_d"]`` / ``want["log_d"]``), and f0 and energy
+      before ``bucketize`` (a grid or mix row passes them from ``uncast``,
+      left in f32);
+    - the waveforms agree by log-mel MAE < 0.1 (bf16 vocoder; int16 in a
+      grid or mix row);
+    - where the row and the request fall into the same pitch and energy
+      bins (``bin_flips``), the mel agrees within 2e-4 + 1e-4 x |want|,
+      or with ``f16`` within float16's half ulp of the scale + 1e-4.
+
+    A prediction within f32 rounding of a bin edge can take the other bin
+    in one of the two (other batch sizes run other algorithms; one such
+    flip moved a 1024-frame mel by 0.12); such a row is held on everything
+    else, and its mel is reported with the frames, not held. Returns the
+    row's record; ``held`` says whether its mel was held."""
+    check(got["mel_len"] == want["mel_len"], f"{what}: mel_len {got['mel_len']}, alone {want['mel_len']}")
+    rec = {"mel_len": got["mel_len"]}
+    keys = ("f0", "energy")
+    if durations is not None:
+        check(np.array_equal(*durations), f"{what}: a rounded duration differs from its request's")
+        keys = ("log_d",) + keys
+    for key in keys:
+        err, ok = near_scale(np, got[key], want[key])
+        check(ok, f"{what}: {key} off its request's by {err}")
+        rec[f"{key}_max_abs_err"] = err
+    mae = float(np.abs(frontend(got["wav"])[0] - frontend(want["wav"])[0]).mean())
+    check(mae < 0.1, f"{what}: wav log-mel MAE {mae} against its request's")
+    rec["wav_log_mel_mae"] = mae
+    flips = bin_flips(np, bins, got, want)
+    if flips:
+        return {**rec, "bin_flips": flips, "held": False}
+    if f16:
+        err = float(np.abs(got["mel"] - want["mel"]).max())
+        ok = err <= 2.0 ** -11 * float(np.abs(want["mel"]).max()) + 1e-4
+    else:
+        err, ok = near(np, got["mel"], want["mel"])
+    check(ok, f"{what}: mel off its request's by {err}")
+    return {**rec, "mel_max_abs_err": err, "held": True}
+
+
+def hold_f16(np, frontend, bins, what, got, raw, want) -> dict:
+    """A grid or mix row (``got``: float16 values, int16 wav; ``raw``: the
+    same row left in f32 by ``uncast``): the float16 values are ``raw``'s
+    rounded (within the half ulp of the scale + 1e-4), and the row is its
+    single request (``hold_request`` with ``f16``; f0 and energy from
+    ``raw``)."""
+    for key in ("mel", "f0", "energy"):
+        err = float(np.abs(got[key] - raw[key]).max())
+        tol = 2.0 ** -11 * float(np.abs(raw[key]).max()) + 1e-4
+        check(got["mel_len"] == raw["mel_len"] and err <= tol, f"{what}: float16 {key} off its f32 value by {err}")
+    return hold_request(np, frontend, bins, what, {**got, "f0": raw["f0"], "energy": raw["energy"]},
+                        want, f16=True)
+
+
+def phase_serving(torch, synth, cfg, ref, ref2, spk, spk2, smi) -> None:
+    """The rest of the Synthesizer on the card (iSTFTNet, trained weights,
+    default buckets): warmup, a 16-row synthesize_batch (timed, profiled,
+    every row held to its single request), a chunked long sentence, the
+    inspection grid and mix-and-match (each held to single requests), and
+    the acoustic forward with and without the residual decode. Kernel A
+    and kernel B are counted on every phase, nothing else may launch, and
+    on every phase that runs them each of their calls is held against its
+    plain version on the phase's own inputs (``hold_kernels``), in an
+    untimed call before the counted one."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from styler_tpu_torch.core.config import bucket_for
+
+    per_vocode = 2 * 18  # iSTFTNet: 2 stages x 18 launches, all rows at once
+    per_encode = 2  # one kernel-B launch per BiLSTM layer, all rows at once
+    n = Launches()
+    sm = synth.model.style_modeling
+    bins = (sm.pitch_bins.cpu().numpy(), sm.energy_bins.cpu().numpy())
+    frontend = synth.frontend
+
+    # warmup: one forward per (batch, src bucket, mel bucket)
+    n.reset()
+    t0 = time.perf_counter()
+    count = synth.warmup()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(count == len(cfg.src_buckets) * len(cfg.mel_buckets) == 25, f"warmup: {count} forwards")
+    emit("warmup", seconds=seconds, forwards=count,
+         launches=n.check_serving("warmup", per_vocode * count, per_encode * count), card=smi)
+
+    # batch: 16 distinct (sentence, reference, speaker) rows that share
+    # one pair of buckets, so that each row's request alone runs at the
+    # batch's buckets too (the predictors' convs and the audio encoder's
+    # GroupNorm see the padding, in the JAX model as well)
+    rows = [(s, (ref, ref2)[j], (spk, spk2)[j]) for s in BATCH_SENTENCES for j in (0, 1)]
+    sentences, refs, spks = (list(c) for c in zip(*rows))
+    ids = [synth.text_to_ids(s) for s in sentences]
+    own = {(bucket_for(len(i), cfg.src_buckets), bucket_for(r.mel_len, cfg.mel_buckets))
+           for i, r in zip(ids, refs)}
+    check(len(rows) == 16 and len(own) == 1, f"batch: the rows lie in the buckets {own}")
+    with Capture(synth) as cap:
+        synth.synthesize_batch(sentences, refs, spks)
+        torch.cuda.synchronize()
+    kernels_held = hold_kernels(torch, "batch", cap)
+    fwd = cap.forwards[0][2][0]
+    check(len(cap.forwards) == 1 and [c["shape"][0] for c in kernels_held["resblock_stage"]] == [32, 32]
+          and [c["shape"][1] for c in kernels_held["lstm_recurrence"]] == [16, 16],
+          f"batch: kernel shapes {kernels_held}")
+    log_d = fwd.log_d_prediction.cpu().numpy()
+    del cap
+    n.reset()
+    t0 = time.perf_counter()
+    res = synth.synthesize_batch(sentences, refs, spks)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = n.check_serving("batch", per_vocode, per_encode)
+    check(fwd.mel_len.tolist() == [r["mel_len"] for r in res], "batch: mel_len differs between two calls")
+    M = cfg.mel_buckets[-1]
+    for i, r in enumerate(res):
+        ml = r["mel_len"]
+        check(0 < ml <= M and r["mel"].shape == r["mel_noisy"].shape == (ml, cfg.n_mel_channels)
+              and r["wav"].shape == r["wav_noisy"].shape == (ml * cfg.hop_length,)
+              and r["f0"].shape == r["energy"].shape == (ml,), f"batch row {i}: shapes")
+        for k in ("mel", "mel_noisy", "wav", "wav_noisy", "f0", "energy"):
+            check(bool(np.isfinite(r[k]).all()), f"batch row {i}: non-finite {k}")
+
+    def rounded(x):
+        return sm.duration_rounded(torch.from_numpy(x).to(synth.device), 1.0).cpu().numpy()
+
+    # every row against its request alone (hold_request), its clean and
+    # its noisy outputs
+    records = []
+    for i, (r, (s, rf, sp), row_ids) in enumerate(zip(res, rows, ids)):
+        single = synth.synthesize(s, rf, sp)
+        L = len(row_ids)
+        d = (rounded(log_d[i, :L]), rounded(single["duration"][:L]))
+        rec = hold_request(np, frontend, bins, f"batch row {i}", {**r, "log_d": log_d[i, :L]},
+                           {**single, "log_d": single["duration"][:L]}, durations=d)
+        noisy = hold_request(np, frontend, bins, f"batch row {i} noisy",
+                             {**r, "mel": r["mel_noisy"], "wav": r["wav_noisy"]},
+                             {**single, "mel": single["mel_noisy"], "wav": single["wav_noisy"]})
+        records.append({"row": i, "clean": rec, "noisy": noisy})
+    held = sum(rec[k]["held"] for rec in records for k in ("clean", "noisy"))
+    check(held >= len(records), f"batch: {held} of {2 * len(records)} mels held, fewer than half")
+    audio_s = sum(r["mel_len"] for r in res) * cfg.hop_length / cfg.sampling_rate
+    emit("batch", rows=len(res), buckets=own.pop(), wall_ms=wall_ms, audio_s=audio_s,
+         audio_s_per_wall_s=audio_s / (wall_ms / 1e3), mel_lens=[r["mel_len"] for r in res],
+         mels_held=held, mels=2 * len(records), rows_vs_synthesize=records,
+         tolerance="log-d, f0, energy within 1e-4 x max(1, max|request|); mel within "
+                   "2e-4 + 1e-4 x |request|; wav log-mel MAE < 0.1",
+         kernels_held=kernels_held, launches=launches, card=smi)
+
+    # profile_batch: the same call under torch.profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        synth.synthesize_batch(sentences, refs, spks)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    prows, host = profile_rows(torch, prof)
+    emit_profile("profile_batch", prows, host, wall_ms, batch_rows=len(rows), card=smi)
+
+    # long: a sentence of 300-400 phonemes, two chunks of the 256 bucket
+    long_sentence = " ".join([SENTENCES[2]] * 3)
+    n_ph = len(synth.text_to_ids(long_sentence))
+    check(cfg.src_buckets[-1] < n_ph <= 400, f"long: {n_ph} phonemes")
+    with Capture(synth) as cap:
+        synth.synthesize(long_sentence, ref, spk)
+        torch.cuda.synchronize()
+    kernels_held = hold_kernels(torch, "long", cap)
+    check(len(cap.forwards) == 1, f"long: {len(cap.forwards)} forwards, expected one chunk batch")
+    chunk_lens = cap.forwards[0][2][0].mel_len.tolist()
+    del cap
+    n.reset()
+    t0 = time.perf_counter()
+    out = synth.synthesize(long_sentence, ref, spk)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = n.check_serving("long", per_vocode, per_encode)
+    k = out.get("chunks")
+    ml = out["mel_len"]
+    check(k == 2 and len(chunk_lens) == 2, f"long: {k} chunks in a batch of {len(chunk_lens)}, expected 2")
+    check(ml == sum(chunk_lens) and out["mel"].shape == (ml, cfg.n_mel_channels)
+          and out["wav"].shape == (ml * cfg.hop_length,), "long: lengths and shapes")
+    for key in ("mel", "mel_noisy", "wav", "wav_noisy", "f0", "energy"):
+        check(bool(np.isfinite(out[key]).all()), f"long: non-finite {key}")
+    emit("long", phonemes=n_ph, chunks=k, chunk_mel_lens=chunk_lens, mel_len=ml,
+         wall_ms=wall_ms, kernels_held=kernels_held, launches=launches, card=smi)
+
+    # inspect: the ten-row ablation grid of one sentence
+    sentence = SENTENCES[-1]
+    single = synth.synthesize(sentence, ref, spk)
+    with Capture(synth) as cap:
+        synth.inspect(sentence, ref, spk)
+        torch.cuda.synchronize()
+    kernels_held = hold_kernels(torch, "inspect", cap)
+    del cap
+    n.reset()
+    t0 = time.perf_counter()
+    grid = synth.inspect(sentence, ref, spk)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = n.check_serving("inspect", per_vocode, per_encode)
+    titles = ["T+D+P+E+S+N", "T+D+P+E+N", "T+D+P+N", "T+D+N", "T+N",
+              "T", "T+D", "T+D+P", "T+D+P+E", "T+D+P+E+S"]
+    check(list(grid) == titles, f"inspect: titles {list(grid)}")
+    for title, g in grid.items():
+        check(all(bool(np.isfinite(g[key]).all()) for key in ("mel", "wav", "f0", "energy"))
+              and g["wav"].shape == (g["mel_len"] * cfg.hop_length,), f"inspect {title}: non-finite or shape")
+    raw = uncast(synth, lambda: synth.inspect(sentence, ref, spk))
+    ident = {}
+    for title, sfx in (("T+D+P+E+S", ""), ("T+D+P+E+S+N", "_noisy")):
+        ident[title] = hold_f16(np, frontend, bins, f"inspect {title}", grid[title], raw[title],
+                                {**single, "mel": single["mel" + sfx], "wav": single["wav" + sfx]})
+    emit("inspect", sentence=sentence, rows=len(grid), wall_ms=wall_ms, identities=ident,
+         mel_lens=[g["mel_len"] for g in grid.values()], kernels_held=kernels_held,
+         launches=launches, card=smi)
+
+    # mix: two sentences x the two references, 32 combinations
+    pair = (SENTENCES[0], SENTENCES[1])
+    singles = {c: synth.synthesize(pair[i], (ref, ref2)[i], (spk, spk2)[i])
+               for c, i in (("00000", 0), ("11111", 1))}
+    with Capture(synth) as cap:
+        synth.mix_and_match(pair, (ref, ref2), (spk, spk2))
+        torch.cuda.synchronize()
+    kernels_held = hold_kernels(torch, "mix", cap)
+    del cap
+    n.reset()
+    t0 = time.perf_counter()
+    mix = synth.mix_and_match(pair, (ref, ref2), (spk, spk2))
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = n.check_serving("mix", per_vocode, per_encode)
+    check(list(mix) == [f"{c:05b}" for c in range(32)], "mix: titles")
+    for title, g in mix.items():
+        check(all(bool(np.isfinite(g[key]).all()) for key in ("mel", "wav", "f0", "energy"))
+              and g["wav"].shape == (g["mel_len"] * cfg.hop_length,), f"mix {title}: non-finite or shape")
+    raw = uncast(synth, lambda: synth.mix_and_match(pair, (ref, ref2), (spk, spk2)))
+    ident = {title: hold_f16(np, frontend, bins, f"mix {title}", mix[title], raw[title], single)
+             for title, single in singles.items()}
+    emit("mix", sentences=list(pair), rows=len(mix), wall_ms=wall_ms,
+         M_comb=bucket_for(max(g["mel_len"] for g in mix.values()), cfg.mel_buckets),
+         identities=ident, kernels_held=kernels_held, launches=launches, card=smi)
+
+    # residual_off: the acoustic forward at B = 1, (src, mel) buckets (128, 1024)
+    ids = synth.text_to_ids(SENTENCES[-1])
+    check(bucket_for(len(ids), cfg.src_buckets) == 128, "residual_off: not the 128 src bucket")
+    src_seq, src_len, mel, f0, en, mel_len, sp = synth._pack_rows([ids], [ref], [spk])
+    pad = M - mel.shape[1]
+    mel, f0, en = F.pad(mel, (0, 0, 0, pad)), F.pad(f0, (0, pad)), F.pad(en, (0, pad))
+    times, busy, outs = {}, {}, {}
+    n.reset()
+    with torch.no_grad():
+        for residual in (False, True):
+            def fwd():
+                return synth.model(src_seq, mel, mel, f0, en, src_len, mel_len, M, sp,
+                                   residual=residual)
+            outs[residual] = fwd()
+            times[residual] = cuda_ms(torch, fwd, 5)
+            # an eager forward at B = 1 leaves the card idle between
+            # operators, so the events read the host's pace; the profile's
+            # kernel rows give the device's own time
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fwd()
+                torch.cuda.synchronize()
+            busy[residual] = sum(r[2] for r in profile_rows(torch, prof)[0])
+    launches = n.check_serving("residual_off", 0, 2 * 8 * per_encode)
+    a, b = outs[False].mel_postnet, outs[True].mel_postnet
+    err = (a - b).abs().max().item()
+    check(outs[False].mel_postnet_noisy is a and torch.equal(outs[False].mel_len, outs[True].mel_len)
+          and bool(((a - b).abs() <= 2e-4 + 1e-4 * b.abs()).all()),
+          f"residual_off: clean mel off the residual forward's by {err}")
+    emit("residual_off", shape={"B": 1, "L": 128, "M": M}, ms_residual_off=times[False],
+         ms_residual_on=times[True], device_busy_ms_residual_off=busy[False],
+         device_busy_ms_residual_on=busy[True], max_abs_err=err, tolerance="2e-4 + 1e-4 x |on|",
+         launches=launches, card=smi)
 
 
 def phase_hifigan(torch, cfg, mel2b, ref, spk, smi):
@@ -727,12 +1215,8 @@ def phase_hifigan(torch, cfg, mel2b, ref, spk, smi):
     (hifigan_card_vs_cpu). Returns the kernel records and launch counts."""
     import numpy as np
 
-    from styler_tpu_torch.ops.lstm import lstm_recurrence
-    from styler_tpu_torch.ops.resblock import fused_resblock_stage, resblock_stage_int8
     from styler_tpu_torch.synthesis import load_synthesizer
 
-    counters = {"resblock_stage": fused_resblock_stage, "resblock_stage_int8": resblock_stage_int8,
-                "lstm_recurrence": lstm_recurrence}
     per_request = 4 * 18  # 4 stages x 3 branches x 3 dilations x 2 convs
 
     t0 = time.perf_counter()
@@ -742,7 +1226,7 @@ def phase_hifigan(torch, cfg, mel2b, ref, spk, smi):
     rec_a, rec_q = phase_resblock(torch, synth.generator, mel2b, "HiFi-GAN", int8=True)
     phase_branch_dilations(torch)
 
-    outs, launches = run_requests(torch, synth, ref, spk, cfg, "main_hifigan", smi, counters)
+    outs, launches = run_requests(torch, synth, ref, spk, cfg, "main_hifigan", smi)
     emit("main_hifigan_launches", **launches)
     check(launches["resblock_stage"] == per_request * len(SENTENCES)
           and launches["resblock_stage_int8"] == 0,
@@ -758,7 +1242,7 @@ def phase_hifigan(torch, cfg, mel2b, ref, spk, smi):
         del os.environ["STYLER_TPU_INT8_VOCODER"]
     check(synth_q.generator.quantize, "STYLER_TPU_INT8_VOCODER=1 did not select the int8 form")
     emit("load_int8", seconds=time.perf_counter() - t0)
-    outs_q, launches_q = run_requests(torch, synth_q, ref, spk, cfg, "int8", smi, counters)
+    outs_q, launches_q = run_requests(torch, synth_q, ref, spk, cfg, "int8", smi)
     emit("int8_launches", **launches_q)
     check(launches_q["resblock_stage_int8"] == per_request * len(SENTENCES)
           and launches_q["resblock_stage_int8_prep"] == 4 * len(SENTENCES)
@@ -823,7 +1307,6 @@ def phase_train(torch, cfg, smi, workdir):
     """The training main path: example dataset on disk -> Trainer.fit on
     CUDA from the trained asset, batch 16, dropout on. Returns the trainer
     and the launch counts of the whole run."""
-    from styler_tpu_torch.ops.lstm import lstm_backward, lstm_recurrence
     from styler_tpu_torch.train.example import write_example_dataset
     from styler_tpu_torch.train.trainer import Trainer
 
@@ -843,8 +1326,9 @@ def phase_train(torch, cfg, smi, workdir):
     stats_before = {k: v.clone() for k, v in model.named_buffers() if "running" in k}
 
     torch.cuda.reset_peak_memory_stats()
-    lstm_recurrence.launches = lstm_recurrence.training_launches = lstm_backward.launches = 0
-    seen = {"b": 0, "c": 0, "t": time.perf_counter()}
+    n = Launches()
+    n.reset()
+    seen = {"lstm_recurrence_training": 0, "lstm_backward": 0, "t": time.perf_counter()}
     walls = []
 
     def on_step(state, comps):
@@ -857,9 +1341,11 @@ def phase_train(torch, cfg, smi, workdir):
         gn = float(state.grad_norm)
         check(math.isfinite(gn) and gn > 0, f"step {state.step}: gradient norm {gn}")
         check(all(p.grad is not None for p in model.parameters()), "a parameter has no gradient")
-        b = lstm_recurrence.training_launches - seen["b"]
-        c = lstm_backward.launches - seen["c"]
-        seen["b"], seen["c"] = lstm_recurrence.training_launches, lstm_backward.launches
+        now_n = n.read()
+        b = now_n["lstm_recurrence_training"] - seen["lstm_recurrence_training"]
+        c = now_n["lstm_backward"] - seen["lstm_backward"]
+        seen["lstm_recurrence_training"], seen["lstm_backward"] = (
+            now_n["lstm_recurrence_training"], now_n["lstm_backward"])
         check(b == 4 and c == 4, f"step {state.step}: kernel B (training form) launched {b} "
                                  f"times and kernel C {c} times, expected 4 and 4")
         walls.append(wall_ms)
@@ -872,7 +1358,8 @@ def phase_train(torch, cfg, smi, workdir):
     torch.cuda.synchronize()
     state = trainer.state
     check(state.step == n_steps, f"step counter {state.step} after {n_steps} steps")
-    check(lstm_recurrence.launches == lstm_recurrence.training_launches,
+    counts = n.read()
+    check(counts["lstm_recurrence"] == counts["lstm_recurrence_training"],
           "a serving-form launch on the training path")
     changed = sum(int(not torch.equal(before[k], v.detach())) for k, v in model.named_parameters())
     check(changed >= 0.95 * len(before), f"only {changed} of {len(before)} parameter leaves changed")
@@ -881,14 +1368,13 @@ def phase_train(torch, cfg, smi, workdir):
     check(moved == len(stats_before) > 0, f"{moved} of {len(stats_before)} BatchNorm statistics moved")
     check(os.path.exists(os.path.join(workdir, "ckpt", f"step_{n_steps}.pt")), "no checkpoint written")
     check(sum("\"step\"" in line for line in logs) == n_steps, "one metrics line per step expected")
-    launches = {"lstm_recurrence_training": lstm_recurrence.training_launches,
-                "lstm_backward": lstm_backward.launches}
+    launches = {k: counts[k] for k in ("lstm_recurrence_training", "lstm_backward")}
     emit("train_summary", steps=n_steps, timed_step_wall_ms=walls[1:],
          mean_timed_step_wall_ms=sum(walls[1:]) / len(walls[1:]),
          leaves_changed=changed, leaves=len(before), batchnorm_statistics_moved=moved,
          max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
          max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30, card=smi, **launches)
-    check(all(n > 0 for n in launches.values()), f"a kernel of the training path never launched: {launches}")
+    check(all(v > 0 for v in launches.values()), f"a kernel of the training path never launched: {launches}")
     return trainer, launches
 
 
@@ -1020,12 +1506,10 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
 
-    from styler_tpu_torch.core.config import default_config
+    from styler_tpu_torch.core.config import bucket_for, default_config
     from styler_tpu_torch.core.device import resolve_device
     from styler_tpu_torch.data.audio_io import read_wav_int
     from styler_tpu_torch.ops import build
-    from styler_tpu_torch.ops.lstm import lstm_backward, lstm_recurrence
-    from styler_tpu_torch.ops.resblock import fused_resblock_stage, resblock_stage_int8
     from styler_tpu_torch.synthesis import extract_reference_features, load_synthesizer
 
     # 1. device
@@ -1068,26 +1552,36 @@ def main() -> int:
     ref = extract_reference_features(wav.astype(np.float32), cfg, synth.frontend)
     spk = np.random.default_rng(0).standard_normal(cfg.speaker_embed_dim).astype(np.float32)
     spk /= np.linalg.norm(spk)
-    lstm_recurrence.training_launches = 0
-    outs, launches = run_requests(torch, synth, ref, spk, cfg, "main", smi, {
-        "resblock_stage": fused_resblock_stage, "lstm_recurrence": lstm_recurrence,
-        "resblock_stage_int8": resblock_stage_int8, "lstm_backward": lstm_backward})
+    outs, launches = run_requests(torch, synth, ref, spk, cfg, "main", smi)
     emit("main_launches", **launches)
     check(launches["resblock_stage"] > 0 and launches["lstm_recurrence"] > 0,
           f"a kernel of the main path never launched: {launches}")
-    check(lstm_recurrence.training_launches == 0 and launches["lstm_backward"] == 0
+    check(launches["lstm_recurrence_training"] == launches["lstm_backward"] == 0
           and launches["resblock_stage_int8"] == 0, "serving launched a training or an int8 kernel")
     phase_profile(torch, synth, SENTENCES[-1], ref, spk)
 
     # 5. card vs CPU on the first request
     card_vs_cpu(torch, synth, load_synthesizer(cfg, device="cpu"), outs[0], ref, spk, "card_vs_cpu")
+
+    # 6. the rest of the Synthesizer: warmup, batch, profile_batch, long,
+    # inspect, mix, residual_off. The second reference lies in the first's
+    # mel bucket (512): the audio encoder's GroupNorm takes its statistics
+    # over the padded frames too (styler_tpu/models/audio_encoder.py:95),
+    # so a batch row equals its single request only at the same bucket.
+    sr, wav2 = read_wav_int(os.path.join(ROOT, "assets", "vocoder", "val", "val_0002.wav"))
+    ref2 = extract_reference_features(wav2.astype(np.float32), cfg, synth.frontend)
+    check(bucket_for(ref2.mel_len, cfg.mel_buckets) == bucket_for(ref.mel_len, cfg.mel_buckets),
+          "the two references lie in different mel buckets")
+    spk2 = np.random.default_rng(1).standard_normal(cfg.speaker_embed_dim).astype(np.float32)
+    spk2 /= np.linalg.norm(spk2)
+    phase_serving(torch, synth, cfg, ref, ref2, spk, spk2, smi)
     del synth
     torch.cuda.empty_cache()
 
-    # 6-9. the HiFi-GAN serving path, exact and int8
+    # 7-10. the HiFi-GAN serving path, exact and int8
     rec_h, rec_q, launches_h, launches_q = phase_hifigan(torch, cfg, mel2b, ref, spk, smi)
 
-    # 10-12. the training main path
+    # 11-13. the training main path
     workdir = tempfile.mkdtemp(prefix="smoke-train-", dir=os.path.join(ROOT, "styler_tpu_torch", "_build"))
     try:
         trainer, train_launches = phase_train(torch, cfg, smi, workdir)

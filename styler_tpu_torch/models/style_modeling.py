@@ -15,11 +15,15 @@ The ``encodings`` dict is the controllability contract:
     s       speaker encoding                    [B, L, 256]
     e       channel-up energy encoding          [B, L, 256]
     n       channel-up noise encoding           [B, L, 256]
+
+``predict_inference`` runs the predictors, the length regulator and the
+embeddings on such encodings after the caller has mixed them (the
+inspection grid and mix-and-match of ``synthesis.py``).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 import torch.nn as nn
@@ -248,4 +252,48 @@ class StyleModeling(nn.Module):
             mel_mask=out_mel_mask,
             dat_posteriors=dat_posteriors,
             encodings=encodings,
+        )
+
+    def predict_inference(
+        self,
+        text_encoding, pitch_encoding, energy_encoding, duration_encoding,
+        speaker_encoding, noise_encoding, src_mask, max_mel_len: int,
+        speaker_normalized: Union[bool, torch.Tensor] = True,
+        d_control: float = 1.0, p_control: float = 1.0, e_control: float = 1.0,
+    ):
+        """Inference over externally mixed encodings, all [B, L, 256]
+        (reference modules.py:285-309). ``speaker_normalized``: a bool, or
+        per-row float weights [B] where 1.0 adds the speaker stream to the
+        pitch predictor's input (= ``False``) and 0.0 leaves it out, so rows
+        with either flag run in one batch.
+
+        Returns (text_f, pitch_embedding, speaker_f, energy_embedding,
+        noise_f, log_d_prediction, p_prediction, e_prediction, mel_mask)."""
+        streams = torch.cat(
+            [text_encoding, pitch_encoding, speaker_encoding, energy_encoding, noise_encoding],
+            dim=-1,
+        )
+        log_d_prediction = self.duration_predictor(duration_encoding, src_mask)
+        streams, mel_len = length_regulate(
+            streams, self.duration_rounded(log_d_prediction, d_control), max_mel_len
+        )
+        mel_mask = mask_from_lengths(torch.clamp(mel_len, max=max_mel_len), max_mel_len)
+        text_f, pitch_f, speaker_f, energy_f, noise_f = torch.split(
+            streams, self.config.encoder_hidden, dim=-1
+        )
+
+        e_prediction = self.energy_predictor(energy_f, mel_mask) * e_control
+        energy_embedding = self.energy_embedding(bucketize(e_prediction, self.energy_bins))
+
+        if isinstance(speaker_normalized, (bool, int)):
+            pitch_in = pitch_f if speaker_normalized else pitch_f + speaker_f
+        else:
+            w = torch.as_tensor(speaker_normalized, dtype=pitch_f.dtype, device=pitch_f.device)
+            pitch_in = pitch_f + w.reshape(-1, 1, 1) * speaker_f
+        p_prediction = self.pitch_predictor(pitch_in, mel_mask) * p_control
+        pitch_embedding = self.pitch_embedding(bucketize(p_prediction, self.pitch_bins))
+
+        return (
+            text_f, pitch_embedding, speaker_f, energy_embedding, noise_f,
+            log_d_prediction, p_prediction, e_prediction, mel_mask,
         )

@@ -8,7 +8,8 @@ style factors. In eval mode the two decodes run as one 2B batch; in train
 mode (``nn.Module.train()``) they stay two sequential passes, so the
 PostNet's BatchNorm sees the batch statistics, and makes the two momentum
 updates, of the reference's two forwards. Dropout is a separate switch:
-the ``dropout`` generator argument, ``None`` for none.
+the ``dropout`` generator argument, ``None`` for none. ``residual=False``
+skips the residual decode.
 """
 
 from __future__ import annotations
@@ -67,6 +68,21 @@ class STYLER(nn.Module):
         mel = self.mel_linear(self.decoder(style_output, mel_mask, dropout))
         return mel, self.postnet(mel, dropout) + mel
 
+    def encode_style(self, src_seq, mel_target, mel_aug, p_norm, e_input, src_len, mel_len,
+                     max_mel_len: int, speaker_embed,
+                     d_control: float = 1.0, p_control: float = 1.0, e_control: float = 1.0):
+        """The style-modeling forward with predicted durations and no
+        decode: the encodings producer of the inspection grid and of
+        mix-and-match, which decode mixed encodings of their own.
+
+        Returns ``(encodings dict, src_mask, predicted mel_len)``."""
+        src_mask = mask_from_lengths(src_len, src_seq.shape[1])
+        sm = self.style_modeling(
+            src_seq, speaker_embed, mel_target, mel_aug, p_norm, e_input,
+            src_len, mel_len, src_mask, max_mel_len, d_control, p_control, e_control,
+        )
+        return sm.encodings, src_mask, sm.mel_len
+
     def forward_dat(self, mel_aug, f0_norm_aug, e_input_aug, mel_len, src_len, src_mask):
         """Second DAT pass on fully augmented inputs (reference
         train.py:148-156): encoder_input_cat(aug, aug, aug, aug) -> audio
@@ -95,7 +111,11 @@ class STYLER(nn.Module):
         p_target: Optional[torch.Tensor] = None,
         e_target: Optional[torch.Tensor] = None,
         dropout: Optional[torch.Generator] = None,
+        residual: bool = True,
     ) -> StylerOutput:
+        """``residual=False`` decodes the clean path only (B rows, not 2B):
+        for callers that use only the denoised output. The noisy slots then
+        hold the clean tensors, so the output's fields keep their shapes."""
         src_mask = mask_from_lengths(src_len, src_seq.shape[1])
         mel_mask = mask_from_lengths(mel_len, max_mel_len) if d_target is not None else None
         sm = self.style_modeling(
@@ -107,7 +127,10 @@ class STYLER(nn.Module):
         out_mel_mask = sm.mel_mask if d_target is None else mel_mask
         out_mel_len = sm.mel_len if d_target is None else mel_len
         noisy_in = sm.encoder_output.detach() + sm.noise_encoding
-        if self.training:
+        if not residual:
+            mel, mel_postnet = self.decode(sm.encoder_output, out_mel_mask, dropout)
+            mel_noisy, mel_postnet_noisy = mel, mel_postnet
+        elif self.training:
             mel, mel_postnet = self.decode(sm.encoder_output, out_mel_mask, dropout)
             mel_noisy, mel_postnet_noisy = self.decode(noisy_in, out_mel_mask, dropout)
         else:

@@ -669,3 +669,97 @@ def test_lstm_step_probe_runs(cuda_device):
     out = lstm_step_probe(16, 320, cuda_device)
     torch.cuda.synchronize()
     assert out.shape == (8,) and torch.all(out == 0.0)
+
+
+# Batched serving: synthesize_batch at 16 rows runs the vocoder on 32
+# (clean and noisy), mix_and_match on 32. Kernel A takes the batch as grid
+# rows (gridDim.z), so 32 rows at the HiFi-GAN last stage is 2.7e8
+# elements a tensor: offsets formed in 64 bits, not in int.
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("T,C", [(8192, 256), (262144, 32)])
+def test_resblock_kernels_at_32_rows(cuda_device, T, C, int8):
+    B = 32
+    rng = np.random.default_rng(T + C)
+    ks, dils = (3, 7, 11), (1, 3, 5)
+    bp = _branch_params(rng, ks, len(dils), C, cuda_device)
+    x = torch.randn(B, T, C, generator=torch.Generator().manual_seed(C)).to(cuda_device, torch.bfloat16)
+    if int8:
+        q = quantize_branch_params(bp)
+        fn, plain, params, tol = resblock_stage_int8, resblock_stage_int8_plain, q, INT8_TOL[torch.bfloat16]
+    else:
+        bp16 = [tuple(t.to(torch.bfloat16) if t.dim() == 4 else t for t in b) for b in bp]
+        fn, plain, params, tol = fused_resblock_stage, resblock_stage_plain, bp16, 3e-2
+    plan = (int8_launch_plan if int8 else bf16_launch_plan)(B, T, C, 11, 5)
+    assert plan["grid"][2] == B
+    before = fn.launches
+    with torch.no_grad():
+        got = fn(x, params, ks, dils)
+        torch.cuda.synchronize()
+        assert fn.launches - before == 18
+        want = plain(x, params, ks, dils)
+    assert got.shape == x.shape and torch.isfinite(got).all()
+    scale = want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * max(scale, 1.0), (err, scale)
+    # the last row is its own request: alone, it gives the same result
+    # (no row reads another row's data)
+    with torch.no_grad():
+        alone = fn(x[-1:].contiguous(), params, ks, dils)
+    err_row = (alone[0].float() - got[-1].float()).abs().max().item()
+    assert err_row <= tol * max(scale, 1.0), (err_row, scale)
+    del got, want, alone
+    torch.cuda.empty_cache()
+
+
+def _bilstm_problem(rng, B, T, hiddens, in_dims, device):
+    """Seeded two-layer BiLSTM params per branch (the audio encoder's
+    layout), inputs zero past ragged valid lengths, and the lengths."""
+    params = []
+    for H, n_in in zip(hiddens, in_dims):
+        layers = []
+        for layer in range(2):
+            fan_in = n_in if layer == 0 else 2 * H
+            bound = 1.0 / np.sqrt(H)
+            layers.append({d: {n: torch.from_numpy(rng.uniform(-bound, bound, s).astype(np.float32)).to(device)
+                               for n, s in (("w_ih", (4 * H, fan_in)), ("w_hh", (4 * H, H)),
+                                            ("b_ih", (4 * H,)), ("b_hh", (4 * H,)))}
+                           for d in ("fwd", "bwd")})
+        params.append(layers)
+    lengths = np.sort(rng.integers(1, T + 1, B))[::-1].copy()
+    lengths[0] = T
+    lengths[-1] = 1  # a one-phoneme row
+    valid = (np.arange(T)[None, :] < lengths[:, None])[..., None]
+    xs = [torch.from_numpy((np.maximum(rng.standard_normal((B, T, n)), 0) * valid).astype(np.float32)).to(device)
+          for n in in_dims]
+    return params, xs, torch.from_numpy(lengths).to(device)
+
+
+@pytest.mark.parametrize("B", [4, 16])
+@pytest.mark.parametrize("T", [32, 256])
+def test_lstm_serving_form_ragged_batch(cuda_device, B, T):
+    """Kernel B's serving form inside the audio encoder's BiLSTM (masking
+    and flips outside the kernel, ``ops/recurrent.py``) at the batch sizes
+    of synthesize_batch (16), mix's base encode (4), rows of different
+    valid lengths: against the same function on the CPU (the plain
+    version). Exact f32 on both sides (TF32 off), sums in another order."""
+    from styler_tpu_torch.ops.recurrent import fused_bilstm_branches
+
+    rng = np.random.default_rng(B * T)
+    hiddens, in_dims = (80, 64, 64, 64), (256, 256, 256, 384)
+    params, xs, lengths = _bilstm_problem(rng, B, T, hiddens, in_dims, cuda_device)
+    before = (lstm_recurrence.launches, lstm_recurrence.training_launches)
+    with torch.no_grad():
+        got = fused_bilstm_branches(params, xs, lengths)
+        torch.cuda.synchronize()
+    assert lstm_recurrence.launches - before[0] == 2  # one per layer
+    assert lstm_recurrence.training_launches == before[1]
+    cpu = lambda t: t.cpu()  # noqa: E731
+    with torch.no_grad():
+        want = fused_bilstm_branches([[{d: {n: cpu(v) for n, v in p.items()} for d, p in layer.items()}
+                                       for layer in br] for br in params],
+                                     [cpu(x) for x in xs], cpu(lengths))
+    for g, w, H in zip(got, want, hiddens):
+        assert g.shape == (B, T, 2 * H)
+        assert (g.cpu() - w).abs().max().item() < 1e-4
+        for b, n in enumerate(lengths.tolist()):
+            assert torch.all(g[b, n:, H:] == 0)  # the backward half's padding stays 0

@@ -292,9 +292,3 @@ def test_int8_flag_is_read_at_construction(monkeypatch, jref, spk):
     assert not hasattr(istft.generator, "quantize")
     out = synth.synthesize(SENTENCES[0], jref, spk)
     assert np.isfinite(out["wav"]).all() and out["wav"].shape == (out["mel_len"] * 256,)
-
-
-def test_long_sentence_raises(tsynth, wav, spk):
-    ref = extract_reference_features(wav, tsynth.config, tsynth.frontend)
-    with pytest.raises(NotImplementedError, match="chunk"):
-        tsynth.synthesize(" ".join(["word"] * 40), ref, spk)
