@@ -35,10 +35,21 @@ Phases, each printing one JSON line:
              chip; a ``kernels_summary`` line sums a path's stages and
              carries ``hbm_floor_ms``, the bytes the 18 launches of each
              stage move at 3.35 TB/s (worked out, not measured).
+3b. speaker — the trained speaker encoder (``SpeakerEmbedder(cfg,
+             backend="native")``, cuDNN f32 convolutions) on the card
+             against ``device="cpu"`` on the four validation wavs: finite,
+             unit norm within 1e-4, card vs CPU within 1e-6 per entry, the
+             four embeddings apart (smallest pairwise cosine distance >
+             1e-3); a control run with TF32 on must differ from the CPU
+             by more than 1e-6, so the limit tells the f32 forward from a
+             TF32 one; the fallback tier equal on both; ms of the host
+             features and of the device forward apart, and the forward's
+             GFLOP and bound.
 4. main    — ``load_synthesizer(default_config())`` on CUDA, reference
-             features of ``assets/vocoder/val/val_0000.wav``, a seeded
-             unit-norm speaker embedding, and ``synthesize`` on 3 sentences;
-             checks shapes, finiteness and that kernels A and B were launched.
+             features of ``assets/vocoder/val/val_0000.wav``, the trained
+             encoder's embedding of that wav (phase 3b), and ``synthesize``
+             on 3 sentences; checks shapes, finiteness and that kernels A and
+             B were launched.
    A profiled request follows (device time by kernel, idle share).
 5. card_vs_cpu — one request again with ``device="cpu"`` (plain versions);
              durations and mels at f32 tolerance, waveforms by log-mel
@@ -86,6 +97,31 @@ Phases, each printing one JSON line:
              with and without the residual decode: CUDA-event ms of each
              and its device busy ms (torch.profiler), the clean mels equal
              within 2e-4 + 1e-4 rel.
+6b. serving from reference audio, on the same synthesizer, with a
+   reference directory written under ``styler_tpu_torch/_build/``
+   (``val_0000.wav`` as ``p901_001`` with a TextGrid whose phones tier has
+   silence at both ends, ``val_0001.wav`` as ``p902_001`` with a
+   precomputed ``spker_embed`` npy):
+   reference — ``load_reference``: the trim to the TextGrid's span (mel_len
+             = the durations' sum), the npy embedding where it exists, the
+             encoder's embedding of the trimmed wav where not (equal to
+             ``embed_wav`` within 1e-6); ms of a new reference, and its f0,
+             mel and speaker (asset load, embedding) parts apart;
+   serve   — the server's handler (``styler_tpu_torch/cli/serve.py:Server``)
+             on the request list of ``tests/test_cli.py:203-222``: once under
+             ``Capture`` (every call of kernels A and B held against its
+             plain version), then with each request's launches counted (A 36
+             and B 2 on each synthesizing request, none on the others) and
+             each reply checked as that test does (wav length = mel_len x
+             256); the single request's wav file against ``synthesize``
+             in-process (log-mel MAE < 0.1 after int16 rounding); ms of a
+             request on a cached reference;
+   serve_cli — ``python -m styler_tpu_torch.cli.serve`` as a child process
+             on the card (it inherits ``STYLER_TORCH_BUILD_DIR`` and builds
+             nothing): ping, one request, shutdown; exit code 0, every stdout
+             line a JSON reply to a request, the wav's length; seconds to the
+             first reply; then ``python -m styler_tpu_torch.cli.synthesize``
+             once: clean and noisy wavs and the mel npy written and finite.
 7. hifigan_kernels — ``load_synthesizer(cfg, vocoder_arch="HiFi-GAN")``;
              kernel A (bf16 and f32) and the int8 kernel against their plain
              versions on the four HiFi-GAN stage inputs of the 2B batch of
@@ -116,8 +152,8 @@ Phases, each printing one JSON line:
 13. train_card_vs_cpu — one step's loss components and every gradient leaf,
              without dropout, on the card against ``device="cpu"``.
 
-Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
-line ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
+Then the script's total seconds (``total``), the ``{"kernels": [...]}`` line,
+the nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 that line is printed. Imports nothing of JAX or of the JAX package.
 """
 
@@ -1207,6 +1243,359 @@ def phase_serving(torch, synth, cfg, ref, ref2, spk, spk2, smi) -> None:
          launches=launches, card=smi)
 
 
+# the reference directory of phases reference, serve and serve_cli: val_0000
+# under a VCTK-style name, trimmed by a TextGrid with silence at both ends
+# (the wav is 3.065 s), and val_0001 under a second name whose speaker has a
+# precomputed embedding
+REF_TRIMMED, REF_NPY = "p901_001", "p902_001"
+REF_GRID = [(0.0, 0.35, "sil"), (0.35, 0.9, "HH"), (0.9, 1.1, "sp"), (1.1, 2.7, "AY1"),
+            (2.7, 3.06, "sil")]
+
+
+def write_reference_dir(np, root: str) -> dict:
+    """The reference directory under ``root``; returns the config
+    overrides that point at it."""
+    from styler_tpu_torch.data.textgrid import format_textgrid
+
+    refs = os.path.join(root, "refs")
+    spk_dir = os.path.join(root, "preprocessed", "VCTK", "spker_embed")
+    os.makedirs(refs)
+    os.makedirs(spk_dir)
+    val = os.path.join(ROOT, "assets", "vocoder", "val")
+    shutil.copy(os.path.join(val, "val_0000.wav"), os.path.join(refs, REF_TRIMMED + ".wav"))
+    with open(os.path.join(refs, REF_TRIMMED + ".TextGrid"), "w") as f:
+        f.write(format_textgrid(REF_GRID))
+    shutil.copy(os.path.join(val, "val_0001.wav"), os.path.join(refs, REF_NPY + ".wav"))
+    e = np.random.default_rng(2).standard_normal((1, 512)).astype(np.float32)
+    np.save(os.path.join(spk_dir, f"VCTK-spker_embed-{REF_NPY.split('_')[0]}.npy"), e / np.linalg.norm(e))
+    return {"ref_audio_dir": refs, "ref_tg_dir": refs,
+            "preprocessed_basedir": os.path.join(root, "preprocessed")}
+
+
+def encoder_flops(torch, model, x) -> float:
+    """Multiply-adds x 2 of the encoder's convolutions and affine on ``x``,
+    counted from the shapes by forward hooks."""
+    nn = torch.nn
+    total = []
+
+    def hook(m, inp, out):
+        if isinstance(m, nn.Conv2d):
+            total.append(2.0 * out.numel() * m.in_channels * m.kernel_size[0] * m.kernel_size[1])
+        else:
+            total.append(2.0 * out.numel() * m.in_features)
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, (nn.Conv2d, nn.Linear))]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return sum(total)
+
+
+def phase_speaker(torch, cfg, smi):
+    """The trained speaker encoder (``SpeakerEmbedder(cfg, backend="native")``)
+    on the card against the CPU on the four validation wavs, the fallback
+    tier on both, and the times of one embedding: the host features and the
+    device forward apart. Returns the card's embedder.
+
+    The card-vs-CPU limit sits between the f32 forward's gap (4.5e-8 on
+    an H100 80GB HBM3 at 700 W) and that of a control forward with TF32
+    convolutions and matmuls (6.8e-6 there), which the phase measures too
+    and requires above the limit."""
+    import numpy as np
+
+    from styler_tpu_torch.data.audio_io import read_wav
+    from styler_tpu_torch.data.vctk import SpeakerEmbedder
+    from styler_tpu_torch.speaker import speaker_features_from_audio
+
+    card = SpeakerEmbedder(cfg, backend="native")
+    cpu = SpeakerEmbedder(cfg, backend="native", device="cpu")
+    check(next(card.model.parameters()).is_cuda, "speaker: the encoder is not on the card")
+    val = os.path.join(ROOT, "assets", "vocoder", "val")
+    audios = [read_wav(os.path.join(val, f"val_000{i}.wav"))[0] for i in range(4)]
+    card.embed_wav(audios[0])  # untimed: the first cuDNN calls
+    tol = 1e-6
+    embs, per_wav, cpu_embs = [], [], []
+    for i, a in enumerate(audios):
+        g, c = card.embed_wav(a), cpu.embed_wav(a)
+        norm = float(np.linalg.norm(g))
+        err = float(np.abs(g - c).max())
+        check(g.shape == (1, cfg.speaker_embed_dim) and bool(np.isfinite(g).all()) and abs(norm - 1) < 1e-4,
+              f"speaker val_000{i}: shape {g.shape}, norm {norm}")
+        check(err <= tol, f"speaker val_000{i}: card vs cpu {err} > {tol}")
+        embs.append(g[0])
+        cpu_embs.append(c)
+        per_wav.append({"wav": f"val_000{i}", "norm": norm, "max_abs_err_vs_cpu": err})
+    # the control: the same forwards with TF32 allowed, then the f32 setting back
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        card.embed_wav(audios[0])  # the TF32 algorithms' first calls
+        tf32_err = max(float(np.abs(card.embed_wav(a) - c).max()) for a, c in zip(audios, cpu_embs))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    check(tf32_err > tol, f"speaker: a TF32 forward is within {tol} of the CPU ({tf32_err}), "
+                          "so the limit cannot tell it from f32")
+    cos = np.stack(embs) @ np.stack(embs).T
+    min_dist = float(1.0 - cos[np.triu_indices(4, 1)].max())
+    check(min_dist > 1e-3, f"speaker: two val wavs embed alike (cosine distance {min_dist})")
+
+    fallback = [SpeakerEmbedder(cfg, backend="fallback", device=d) for d in (None, "cpu")]
+    check(all(np.array_equal(fallback[0].embed_wav(a), fallback[1].embed_wav(a)) for a in audios),
+          "speaker: the fallback tier differs between the card's embedder and the CPU's")
+
+    feat_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        feats = speaker_features_from_audio(audios[0], cfg.sampling_rate, cfg.win_length)
+        feat_ms.append((time.perf_counter() - t0) * 1e3)
+    x = torch.from_numpy(feats).permute(2, 0, 1)[None].cuda()
+    with torch.no_grad():
+        fwd_ms = cuda_ms(torch, lambda: card.model(x), 20)
+    wall_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        card.embed_wav(audios[0])
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+    flops = encoder_flops(torch, card.model, x)
+    n_bytes = 4.0 * (x.numel() + sum(p.numel() for p in card.model.parameters()) + cfg.speaker_embed_dim)
+    bound_ms, bound_by = bound(flops, PEAK_F32, n_bytes)
+    emit("speaker", backend="native", input=list(x.shape), per_wav=per_wav,
+         min_pairwise_cosine_distance=min_dist, tf32_control_max_abs_err_vs_cpu=tf32_err,
+         tolerance=f"card vs cpu {tol} per entry (TF32 control above it); norm 1 +- 1e-4",
+         fallback_equal=True, features_ms=feat_ms, forward_ms=fwd_ms, embed_wav_wall_ms=wall_ms,
+         gflop=flops / 1e9, bound_ms=bound_ms, bound_by=bound_by, card=smi)
+    return card
+
+
+def phase_reference(synth, cfg_ref, embedder, smi):
+    """``load_reference`` from a reference directory: the TextGrid trim
+    (mel_len = the durations' sum), the npy embedding where one exists, the
+    encoder's embedding of the trimmed wav where not; ms for a new
+    reference, with its f0, mel and speaker parts timed apart."""
+    import numpy as np
+
+    from styler_tpu_torch.data.audio_io import read_wav_int
+    from styler_tpu_torch.data.textgrid import alignment_from_file
+    from styler_tpu_torch.data.vctk import SpeakerEmbedder
+    from styler_tpu_torch.dsp.pitch import get_f0
+    from styler_tpu_torch.synthesis import load_reference
+
+    refs = cfg_ref.ref_audio_dir
+    ref_npy, spk_npy = load_reference(cfg_ref, synth.frontend, REF_NPY)
+    want = np.load(os.path.join(cfg_ref.preprocessed_path, "spker_embed", "VCTK-spker_embed-p902.npy"))
+    check(np.array_equal(spk_npy, want), f"reference {REF_NPY}: not the precomputed embedding")
+    sr, whole = read_wav_int(os.path.join(refs, REF_NPY + ".wav"))
+    check(ref_npy.mel_len == len(whole) // cfg_ref.hop_length + 1,
+          f"reference {REF_NPY}: mel_len {ref_npy.mel_len} for {len(whole)} samples untrimmed")
+
+    t0 = time.perf_counter()
+    ref, spk = load_reference(cfg_ref, synth.frontend, REF_TRIMMED)
+    total_ms = (time.perf_counter() - t0) * 1e3
+    _, durations, start, end = alignment_from_file(
+        os.path.join(refs, REF_TRIMMED + ".TextGrid"), cfg_ref.sampling_rate, cfg_ref.hop_length)
+    sr, wav = read_wav_int(os.path.join(refs, REF_TRIMMED + ".wav"))
+    trimmed = wav[int(sr * start): int(sr * end)].astype(np.float32)
+    check(ref.mel_len == sum(durations) and ref.mel.shape == (sum(durations), cfg_ref.n_mel_channels),
+          f"reference {REF_TRIMMED}: mel_len {ref.mel_len}, durations sum {sum(durations)}")
+    for key in ("mel", "f0_norm", "energy01"):
+        check(bool(np.isfinite(getattr(ref, key)).all()), f"reference: non-finite {key}")
+    direct = embedder.embed_wav(trimmed / cfg_ref.max_wav_value)
+    err = float(np.abs(spk - direct).max())
+    check(err <= 1e-6, f"reference {REF_TRIMMED}: embedding off embed_wav of the trimmed wav by {err}")
+
+    parts = {"f0_ms": [], "mel_ms": [], "speaker_load_ms": [], "speaker_embed_ms": []}
+    for _ in range(3):
+        t0 = time.perf_counter()
+        get_f0(trimmed, cfg_ref, durations)
+        t1 = time.perf_counter()
+        synth.frontend(trimmed / cfg_ref.max_wav_value)
+        t2 = time.perf_counter()
+        emb = SpeakerEmbedder(cfg_ref, device=synth.frontend.device)
+        t3 = time.perf_counter()
+        emb.embed_wav(trimmed / cfg_ref.max_wav_value)
+        t4 = time.perf_counter()
+        for key, (a, b) in zip(parts, ((t0, t1), (t1, t2), (t2, t3), (t3, t4))):
+            parts[key].append((b - a) * 1e3)
+    emit("reference", name=REF_TRIMMED, seconds_in=len(wav) / sr, trim_s=[start, end],
+         mel_len=ref.mel_len, durations_sum=int(sum(durations)), embedding_vs_embed_wav=err,
+         npy_reference=REF_NPY, npy_mel_len=ref_npy.mel_len, new_reference_ms=total_ms, **parts,
+         card=smi)
+
+
+def phase_serve(torch, synth, cfg_ref, smi, outdir):
+    """The server's request handler (``cli/serve.py:Server``) on the
+    iSTFTNet synthesizer with the reference directory: the request list of
+    ``tests/test_cli.py:203-222`` once under ``Capture`` (every call of
+    kernels A and B held against its plain version), then again with the
+    launches of each request counted and each reply checked as that test
+    does; the single request's wav file against ``synthesize`` in-process;
+    the ms of a request on a cached reference."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    from styler_tpu_torch.cli.serve import CONTRACT, Server
+
+    R = REF_TRIMMED
+    reqs = [
+        {"id": 0, "cmd": "ping"},
+        {"id": 1, "sentence": "Hi.", "ref": R},
+        {"id": 2, "sentence": "Hi again.", "ref": "missing_ref"},
+        {"id": 3, "sentence": "Hi.", "ref": R, "out": os.path.join(outdir, "custom.flac")},
+        {"id": 5, "sentences": ["One two.", "Three."], "ref": R},
+        {"id": 6, "sentences": [], "ref": R},
+        {"id": 7, "sentences": ["Hi."], "refs": [], "ref": R},
+        {"id": 8, "ref": R, "sentence": "The quick brown fox jumps over the lazy dog, " * 4},
+        {"id": 9, "ref": R},
+        {"id": 4, "cmd": "shutdown"},
+    ]
+    synthesizing = {1, 3, 5, 8}  # one forward and one vocoder call each
+    server = Server(synth, cfg_ref, outdir)
+    with Capture(synth) as cap:
+        for req in reqs:
+            server.handle(req)
+        torch.cuda.synchronize()
+    kernels_held = hold_kernels(torch, "serve", cap)
+    check(len(cap.forwards) == len(synthesizing), f"serve: {len(cap.forwards)} forwards")
+    del cap
+
+    n = Launches()
+    by_id, launches, ms = {}, {}, {}
+    for req in reqs:
+        n.reset()
+        t0 = time.perf_counter()
+        rep = server.handle(req)
+        torch.cuda.synchronize()
+        ms[req["id"]] = (time.perf_counter() - t0) * 1e3
+        k = req["id"] in synthesizing
+        launches[req["id"]] = n.check_serving(f"serve request {req['id']}", 36 * k, 2 * k)
+        json.dumps(rep)
+        by_id[req["id"]] = rep
+
+    def wav_len(path, mel_len):
+        sr, data = wavfile.read(path)
+        check(sr == cfg_ref.sampling_rate and len(data) == mel_len * cfg_ref.hop_length > 0,
+              f"serve: {path} holds {len(data)} samples at {sr} Hz for mel_len {mel_len}")
+
+    check(by_id[0] == {"id": 0, "ok": True, "pong": True} and by_id[4] == {"id": 4, "ok": True, "bye": True},
+          "serve: ping / shutdown")
+    for rid in (1, 3, 8):
+        check(by_id[rid]["ok"], f"serve request {rid}: {by_id[rid]}")
+        wav_len(by_id[rid]["wav"], by_id[rid]["mel_len"])
+        wav_len(by_id[rid]["wav_noisy"], by_id[rid]["mel_len"])
+    check(by_id[3]["wav"].endswith("custom.flac.wav") and by_id[3]["wav_noisy"].endswith("custom.flac_noisy.wav"),
+          f"serve: out path {by_id[3]}")
+    check(not by_id[2]["ok"] and "error" in by_id[2], f"serve: missing reference {by_id[2]}")
+    check(by_id[5]["ok"] and len(by_id[5]["wavs"]) == 2 == len(by_id[5]["mel_lens"])
+          and "truncated" not in by_id[5], f"serve: batch {by_id[5]}")
+    for w, wn, ml in zip(by_id[5]["wavs"], by_id[5]["wavs_noisy"], by_id[5]["mel_lens"]):
+        wav_len(w, ml)
+        wav_len(wn, ml)
+    check(not by_id[6]["ok"] and "empty" in by_id[6]["error"], f"serve: empty batch {by_id[6]}")
+    check(not by_id[7]["ok"] and "must match" in by_id[7]["error"], f"serve: mismatched batch {by_id[7]}")
+    check(by_id[9] == {"id": 9, "ok": False, "error": CONTRACT}, f"serve: unknown shape {by_id[9]}")
+
+    # the single request's file against synthesize() in-process, both
+    # through the 16-bit quantisation audiowrite applies
+    ref, spk = server.ref_cache[(R, None, False)]
+    want = synth.synthesize("Hi.", ref, spk)
+    sr, got = wavfile.read(by_id[1]["wav"])
+    want16 = (np.clip(want["wav"], -1, 1) * 32767).astype(np.int16)
+    check(len(got) == len(want16), "serve: the file's length differs from synthesize()'s")
+    mae = float(np.abs(synth.frontend(got / 32767.0)[0] - synth.frontend(want16 / 32767.0)[0]).mean())
+    check(mae < 0.1, f"serve: the file's log-mel MAE against synthesize() {mae}")
+
+    # a request on a cached reference: one untimed, three timed
+    timed = {"sentence": SENTENCES[1], "ref": R}
+    server.handle(timed)
+    walls, replies_ms = [], []
+    for _ in range(3):
+        n.reset()
+        t0 = time.perf_counter()
+        rep = server.handle(timed)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        replies_ms.append(rep["ms"])
+        n.check_serving("serve timed request", 36, 2)
+        check(rep["ok"], f"serve timed request: {rep}")
+    emit("serve", requests=len(reqs), request_ms=ms, launches=launches, wav_vs_synthesize_log_mel_mae=mae,
+         cached_request_wall_ms=walls, cached_request_reply_ms=replies_ms, sentence=SENTENCES[1],
+         mel_len=rep["mel_len"], references_cached=len(server.ref_cache), kernels_held=kernels_held,
+         card=smi)
+
+
+def phase_serve_cli(np, cfg_ref, smi, workdir):
+    """``python -m styler_tpu_torch.cli.serve`` as a child process on the card
+    (it inherits ``STYLER_TORCH_BUILD_DIR``, so it builds nothing): ping,
+    one request, shutdown; then ``python -m styler_tpu_torch.cli.synthesize``
+    once."""
+    from scipy.io import wavfile
+
+    from styler_tpu_torch.ops import build
+
+    libs_before = sorted(os.listdir(build.build_dir()))
+    refs = cfg_ref.ref_audio_dir
+    outdir = os.path.join(workdir, "serve_cli")
+    reqs = [{"id": 0, "cmd": "ping"}, {"id": 1, "sentence": SENTENCES[1], "ref": REF_TRIMMED},
+            {"id": 2, "cmd": "shutdown"}]
+    err_path = os.path.join(workdir, "serve_cli.stderr")
+    t0 = time.perf_counter()
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "styler_tpu_torch.cli.serve", "--ref_audio_dir", refs,
+             "--ref_tg_dir", refs, "--outdir", outdir],
+            cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err, text=True)
+        try:
+            proc.stdin.write("".join(json.dumps(r) + "\n" for r in reqs))
+            proc.stdin.close()
+            lines, at = [], []
+            for line in proc.stdout:
+                lines.append(line)
+                at.append(time.perf_counter() - t0)
+            rc = proc.wait(timeout=300)
+            serve_s = time.perf_counter() - t0
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    with open(err_path) as f:
+        stderr_tail = f.read()[-2000:]
+    check(rc == 0, f"serve_cli: exit code {rc}: {stderr_tail}")
+    replies = []
+    for line in lines:
+        try:
+            replies.append(json.loads(line))
+        except json.JSONDecodeError:
+            raise RuntimeError(f"serve_cli: a stdout line is not JSON: {line!r}") from None
+    check([r.get("id") for r in replies] == [0, 1, 2] and replies[0].get("pong") and replies[2].get("bye")
+          and replies[1].get("ok"), f"serve_cli: replies {replies}")
+    sr, data = wavfile.read(os.path.join(ROOT, replies[1]["wav"]))
+    check(len(data) == replies[1]["mel_len"] * 256 > 0, f"serve_cli: wav of {len(data)} samples")
+    check(sorted(os.listdir(build.build_dir())) == libs_before, "serve_cli: the child built kernels")
+
+    out2 = os.path.join(workdir, "synthesize_cli")
+    t1 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "styler_tpu_torch.cli.synthesize", "--ref_name", REF_TRIMMED,
+         "--ref_audio_dir", refs, "--ref_tg_dir", refs, "--sentence", SENTENCES[1], "--outdir", out2],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    synth_s = time.perf_counter() - t1
+    check(proc.returncode == 0, f"synthesize_cli: exit code {proc.returncode}: {proc.stderr[-2000:]}")
+    stem = os.path.join(out2, f"0_iSTFTNet_{SENTENCES[1][:10].replace(' ', '_')}")
+    mel = np.load(stem + "_mel.npy")
+    for path in (stem + ".wav", stem + "_noisy.wav"):
+        sr, data = wavfile.read(path)
+        check(len(data) == mel.shape[0] * 256 > 0 and bool(np.isfinite(data).all()), f"synthesize_cli: {path}")
+    check(mel.shape[1] == 80 and bool(np.isfinite(mel).all()), "synthesize_cli: mel npy")
+    check(sorted(os.listdir(build.build_dir())) == libs_before, "synthesize_cli: the child built kernels")
+    emit("serve_cli", first_reply_s=at[0], request_reply_s=at[1], request_ms=replies[1]["ms"],
+         exit_s=serve_s, mel_len=replies[1]["mel_len"],
+         synthesize_cli_s=synth_s, synthesize_cli_mel_len=int(mel.shape[0]), card=smi)
+
+
 def phase_hifigan(torch, cfg, mel2b, ref, spk, smi):
     """The HiFi-GAN serving path: kernel A and its int8 form against their
     plain versions on the four stages (hifigan_kernels); 3 requests through
@@ -1503,6 +1892,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to measure", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     sys.path.insert(0, ROOT)
     import numpy as np
 
@@ -1546,12 +1936,14 @@ def main() -> int:
     rec_b = phase_lstm(torch, synth.model, cfg)
     rec_b_train, rec_c = phase_lstm_train(torch, synth.model, cfg, cfg.batch_size)
 
+    # 3b. the trained speaker encoder, card against CPU
+    embedder = phase_speaker(torch, cfg, smi)
+
     # 4. the main path: 3 requests after one warm-up request
     sr, wav = read_wav_int(os.path.join(ROOT, "assets", "vocoder", "val", "val_0000.wav"))
     check(sr == cfg.sampling_rate, f"reference wav at {sr} Hz")
     ref = extract_reference_features(wav.astype(np.float32), cfg, synth.frontend)
-    spk = np.random.default_rng(0).standard_normal(cfg.speaker_embed_dim).astype(np.float32)
-    spk /= np.linalg.norm(spk)
+    spk = embedder.embed_wav(wav.astype(np.float32) / cfg.max_wav_value)
     outs, launches = run_requests(torch, synth, ref, spk, cfg, "main", smi)
     emit("main_launches", **launches)
     check(launches["resblock_stage"] > 0 and launches["lstm_recurrence"] > 0,
@@ -1572,9 +1964,19 @@ def main() -> int:
     ref2 = extract_reference_features(wav2.astype(np.float32), cfg, synth.frontend)
     check(bucket_for(ref2.mel_len, cfg.mel_buckets) == bucket_for(ref.mel_len, cfg.mel_buckets),
           "the two references lie in different mel buckets")
-    spk2 = np.random.default_rng(1).standard_normal(cfg.speaker_embed_dim).astype(np.float32)
-    spk2 /= np.linalg.norm(spk2)
+    spk2 = embedder.embed_wav(wav2.astype(np.float32) / cfg.max_wav_value)
     phase_serving(torch, synth, cfg, ref, ref2, spk, spk2, smi)
+
+    # 6b. serving from reference audio: load_reference, the server's
+    # request handler, and the two entry points as child processes
+    refroot = tempfile.mkdtemp(prefix="smoke-refs-", dir=os.path.join(ROOT, "styler_tpu_torch", "_build"))
+    try:
+        cfg_ref = cfg.replace(**write_reference_dir(np, refroot))
+        phase_reference(synth, cfg_ref, embedder, smi)
+        phase_serve(torch, synth, cfg_ref, smi, os.path.join(refroot, "serve"))
+        phase_serve_cli(np, cfg_ref, smi, refroot)
+    finally:
+        shutil.rmtree(refroot, ignore_errors=True)
     del synth
     torch.cuda.empty_cache()
 
@@ -1621,6 +2023,7 @@ def main() -> int:
          "bound_by": rec_c["bound_by"], "library_ms": rec_c["library_ms"],
          "ns_per_step": rec_c["ns_per_step"], "walk_ms": rec_c["walk_ms"], "dw_ms": rec_c["dw_ms"]},
     ]
+    emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

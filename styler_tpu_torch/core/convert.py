@@ -6,11 +6,13 @@ each module type knows its own leaves:
 
 - ``nn.Linear``        kernel [in, out]  -> weight [out, in]; bias
 - ``nn.Conv1d``        kernel [k, in, out] -> weight [out, in, k]; bias
+- ``nn.Conv2d``        kernel [kh, kw, in, out] -> weight [out, in, kh, kw];
+                       bias
 - ``ConvTranspose1dTorch``  flipped kernel [k, in, out] -> conv_transpose1d
                        weight flip(kernel, 0).permute(1, 2, 0) = [in, out, k]
 - ``nn.LayerNorm`` / ``nn.GroupNorm``  scale -> weight; bias
-- ``nn.BatchNorm1d``   scale, bias; running mean/var from the batch-stats
-                       tree's ``mean`` / ``var``
+- ``nn.BatchNorm1d`` / ``nn.BatchNorm2d``   scale, bias; running mean/var
+                       from the batch-stats tree's ``mean`` / ``var``
 - ``nn.Embedding``     embedding -> weight
 - ``ResBlock1``        convs{1,2}_{i}/kernel, bias stacked over dilations
                        into w{1,2} [n_dil, k, C, C], b{1,2} [n_dil, C]
@@ -87,13 +89,16 @@ def load_flax_tree(
             elif isinstance(m, nn.Conv1d):
                 copy(m.weight, p, "kernel", lambda a: a.transpose(2, 1, 0))
                 copy(m.bias, p, "bias")
+            elif isinstance(m, nn.Conv2d):
+                copy(m.weight, p, "kernel", lambda a: a.transpose(3, 2, 0, 1))
+                copy(m.bias, p, "bias")
             elif isinstance(m, ConvTranspose1dTorch):
                 copy(m.weight, p, "kernel", lambda a: a[::-1].transpose(1, 2, 0))
                 copy(m.bias, p, "bias")
             elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
                 copy(m.weight, p, "scale")
                 copy(m.bias, p, "bias")
-            elif isinstance(m, nn.BatchNorm1d):
+            elif isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d)):
                 copy(m.weight, p, "scale")
                 copy(m.bias, p, "bias")
                 copy(m.running_mean, s, "mean")
@@ -144,13 +149,16 @@ def to_flax_tree(module: nn.Module, grads: bool = False) -> Tuple[dict, dict]:
         elif isinstance(m, nn.Conv1d):
             par("kernel", m.weight, lambda a: a.permute(2, 1, 0))
             par("bias", m.bias)
+        elif isinstance(m, nn.Conv2d):
+            par("kernel", m.weight, lambda a: a.permute(2, 3, 1, 0))
+            par("bias", m.bias)
         elif isinstance(m, ConvTranspose1dTorch):
             par("kernel", m.weight, lambda a: a.permute(2, 0, 1).flip(0))
             par("bias", m.bias)
-        elif isinstance(m, (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm1d)):
+        elif isinstance(m, (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm1d, nn.BatchNorm2d)):
             par("scale", m.weight)
             par("bias", m.bias)
-            if isinstance(m, nn.BatchNorm1d):
+            if isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d)):
                 put(stats, "mean", m.running_mean)
                 put(stats, "var", m.running_var)
         elif isinstance(m, nn.Embedding):

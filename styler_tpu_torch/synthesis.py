@@ -1,7 +1,7 @@
 """Synthesis engine: text + reference audio -> mels and waveforms
 (counterpart of ``styler_tpu/synthesis.py``: ``ReferenceFeatures``,
-``extract_reference_features``, the ``Synthesizer`` and the weight
-resolution of ``load_synthesizer``).
+``extract_reference_features``, ``load_reference``, the ``Synthesizer`` and
+the weight resolution of ``load_synthesizer``).
 
 One request: text -> phoneme ids on the host; the STYLER eval forward
 (text encoder, audio encoder with the BiLSTM recurrences in kernel B,
@@ -35,6 +35,9 @@ from styler_tpu_torch.core.config import Config, bucket_for
 from styler_tpu_torch.core.convert import load_flax_tree, to_flax_tree
 from styler_tpu_torch.core.device import resolve_device
 from styler_tpu_torch.core.import_torch import load_reference_vocoder
+from styler_tpu_torch.data.audio_io import read_wav_int
+from styler_tpu_torch.data.textgrid import alignment_from_file
+from styler_tpu_torch.data.vctk import SpeakerEmbedder
 from styler_tpu_torch.dsp.features import energy_rescaling_np, f0_normalization_np
 from styler_tpu_torch.dsp.mel import MelFrontend
 from styler_tpu_torch.dsp.pitch import get_f0, get_f0_noisy
@@ -86,6 +89,45 @@ def extract_reference_features(
         ).astype(np.float32),
         mel_len=n,
     )
+
+
+def load_reference(
+    config: Config,
+    frontend: MelFrontend,
+    name: str,
+    speaker_id: Optional[str] = None,
+    noisy: bool = False,
+) -> Tuple[ReferenceFeatures, np.ndarray]:
+    """Load a style reference by name (``styler_tpu/synthesis.py:856-899``):
+    the wav from ``config.ref_audio_dir``, trimmed to the span of its MFA
+    TextGrid in ``config.ref_tg_dir`` when one exists (whose durations then
+    set the frames), plus the speaker embedding: the precomputed
+    ``<preprocessed_path>/spker_embed/<dataset>-spker_embed-<spk>.npy``
+    when it exists, else the trimmed wav embedded by ``SpeakerEmbedder``
+    on ``frontend.device``. Shared by the synthesize CLI and the server."""
+    wav_path = os.path.join(config.ref_audio_dir, name + ".wav")
+    tg_path = os.path.join(config.ref_tg_dir, name + ".TextGrid")
+    sr, wav = read_wav_int(wav_path)
+    duration = None
+    if os.path.exists(tg_path):
+        _, duration, start, end = alignment_from_file(
+            tg_path, config.sampling_rate, config.hop_length
+        )
+        wav = wav[int(config.sampling_rate * start): int(config.sampling_rate * end)]
+    ref = extract_reference_features(
+        wav.astype(np.float32), config, frontend, duration, noisy
+    )
+    spk = speaker_id or name.split("_")[0]
+    spk_path = os.path.join(
+        config.preprocessed_path, "spker_embed", f"{config.dataset}-spker_embed-{spk}.npy"
+    )
+    if os.path.exists(spk_path):
+        speaker_embed = np.load(spk_path)
+    else:
+        speaker_embed = SpeakerEmbedder(config, device=frontend.device).embed_wav(
+            wav.astype(np.float32) / config.max_wav_value
+        )
+    return ref, np.asarray(speaker_embed, dtype=np.float32)
 
 
 class Synthesizer:
@@ -624,7 +666,7 @@ def load_synthesizer(
        random init, which draws from a ``jax.random`` key.
     """
     device = resolve_device(device)
-    later = "is a later slice of the port (ROADMAP.md, Queue 1)"
+    later = "is a later slice of the port (ROADMAP.md, Queue 1 [9])"
     if ckpt_path is None:
         ckpt_path = default_acoustic_asset()
         if ckpt_path is None:

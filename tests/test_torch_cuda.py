@@ -763,3 +763,51 @@ def test_lstm_serving_form_ragged_batch(cuda_device, B, T):
         assert (g.cpu() - w).abs().max().item() < 1e-4
         for b, n in enumerate(lengths.tolist()):
             assert torch.all(g[b, n:, H:] == 0)  # the backward half's padding stays 0
+
+
+# ---------------------------------------------------------------------------
+# The speaker encoders: cuDNN f32 convolutions (TF32 off), no kernel of the
+# port's own; the card against the CPU.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("T,W", [(20, 64), (21, 33), (160, 64)])
+def test_speaker_stage_card_vs_cpu(cuda_device, T, W):
+    """One stride-2 stage with its asymmetric 'SAME' padding (even sizes pad
+    (1, 2)) on the card against the CPU; f32 sums in another order."""
+    from styler_tpu_torch.speaker.rescnn import ConvResStage
+
+    torch.manual_seed(T * W)
+    stage = ConvResStage(1, 16, 3).eval()
+    x = torch.randn(2, 1, T, W)
+    with torch.no_grad():
+        want = stage(x)
+        got = stage.to(cuda_device)(x.to(cuda_device)).cpu()
+    assert got.shape == want.shape == (2, 16, -(-T // 2), -(-W // 2))
+    assert (got - want).abs().max().item() <= 1e-5 * max(1.0, want.abs().max().item())
+
+
+@pytest.fixture(scope="module")
+def speaker_embedders(cuda_device):
+    from styler_tpu_torch.core.config import default_config
+    from styler_tpu_torch.data.vctk import SpeakerEmbedder
+
+    return (SpeakerEmbedder(default_config(), backend="native"),
+            SpeakerEmbedder(default_config(), backend="native", device="cpu"))
+
+
+@pytest.mark.parametrize("i", range(4))
+def test_speaker_encoder_card_vs_cpu(speaker_embedders, i):
+    """The trained encoder on each validation wav: unit norm, and the card's
+    embedding within 1e-6 per entry of the CPU's (the f32 forward differs
+    by ~5e-8 on the H100; one with TF32 allowed differs by more than 1e-6,
+    chip_smoke.py's speaker phase)."""
+    from styler_tpu_torch.data.audio_io import read_wav
+
+    card, cpu = speaker_embedders
+    assert next(card.model.parameters()).is_cuda
+    audio = read_wav(f"assets/vocoder/val/val_000{i}.wav")[0]
+    got, want = card.embed_wav(audio), cpu.embed_wav(audio)
+    assert got.shape == want.shape == (1, 512) and np.isfinite(got).all()
+    assert abs(float(np.linalg.norm(got)) - 1.0) < 1e-4
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
