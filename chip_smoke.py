@@ -122,6 +122,36 @@ Phases, each printing one JSON line:
              line a JSON reply to a request, the wav's length; seconds to the
              first reply; then ``python -m styler_tpu_torch.cli.synthesize``
              once: clean and noisy wavs and the mel npy written and finite.
+6c. the serving bundle (``styler_tpu_torch/core/export.py``), on the same
+   synthesizer and reference directory:
+   bundle_capture — ``save_serving_bundle`` at the default buckets (5 x 5)
+             for batches 1 and 8 (50 entries), ``BundleSynthesizer`` on it
+             and its ``warmup()``: every entry one eager forward and one
+             CUDA-graph capture (kernel A 72 and B 4 launches an entry),
+             then a replay; export, load and capture seconds, the graph
+             count, ``torch.cuda.memory_reserved`` before and after (and
+             after ``empty_cache``: the graphs' pool);
+   bundle  — ``main``'s 3 requests and an 8-row batch (BATCH_SENTENCES on
+             one reference) through the graphs against the live eager
+             ``synthesize`` / ``synthesize_batch``: bit-equal expected, any
+             key that differs named with its error and held as a batch row
+             is (``hold_request``); one entry captured again under
+             ``Capture`` and replayed with a real request, so kernels A and
+             B are held against their plain versions on the calls recorded
+             while capturing (the tensors live in the graph's pool and hold
+             the replay's values); a replay and an eager request under
+             ``torch.profiler`` (``bundle_profile``: A 36 and B 2 kernels in
+             the replay's trace, wall, device busy, idle share); the
+             synchronisations of a bundle call (1), of a bundle request and
+             of an eager one (``set_sync_debug_mode("warn")``); request wall
+             ms, graph and eager in turns;
+   serve_bundle — ``Server.handle`` over the ``BundleSynthesizer`` on the
+             ``serve`` request list (no kernel launched: every entry is
+             captured), the replies checked as ``serve`` does, the single
+             request's file against the live ``synthesize``, three timed
+             requests on a cached reference; then ``python -m
+             styler_tpu_torch.cli.serve --bundle DIR --warmup`` as a child
+             process that builds nothing (its warmup seconds from its log).
 7. hifigan_kernels — ``load_synthesizer(cfg, vocoder_arch="HiFi-GAN")``;
              kernel A (bf16 and f32) and the int8 kernel against their plain
              versions on the four HiFi-GAN stage inputs of the 2B batch of
@@ -134,10 +164,13 @@ Phases, each printing one JSON line:
              plain in bf16 and int8.
 8. main_hifigan — 3 requests after a warm-up through HiFi-GAN; kernel A
              launches 72 times per request, the int8 kernel never; then a
-             profiled request (profile_hifigan).
+             profiled request (profile_hifigan) and one bundle entry at the
+             first request's buckets (bundle_hifigan: launches at capture,
+             none at replay, the replay against the live request).
 9. int8    — the same requests with ``STYLER_TPU_INT8_VOCODER=1`` set before
              construction: the int8 kernel 72 times per request, kernel A
-             never; a profiled request (profile_int8); log-mel MAE of the
+             never; a profiled request (profile_int8); the same bundle entry
+             in the int8 form (bundle_int8); log-mel MAE of the
              int8 waveforms against the bf16 ones (fails only above 1.0 or on
              a non-finite result).
 10. hifigan_card_vs_cpu — one HiFi-GAN request against ``device="cpu"``.
@@ -1426,21 +1459,14 @@ def phase_reference(synth, cfg_ref, embedder, smi):
          card=smi)
 
 
-def phase_serve(torch, synth, cfg_ref, smi, outdir):
-    """The server's request handler (``cli/serve.py:Server``) on the
-    iSTFTNet synthesizer with the reference directory: the request list of
-    ``tests/test_cli.py:203-222`` once under ``Capture`` (every call of
-    kernels A and B held against its plain version), then again with the
-    launches of each request counted and each reply checked as that test
-    does; the single request's wav file against ``synthesize`` in-process;
-    the ms of a request on a cached reference."""
-    import numpy as np
-    from scipy.io import wavfile
+SERVE_SYNTHESIZING = {1, 3, 5, 8}  # the requests that run one forward and one vocoder call
 
-    from styler_tpu_torch.cli.serve import CONTRACT, Server
 
+def serve_requests(outdir: str) -> list:
+    """The request list of ``tests/test_cli.py:203-222`` on the trimmed
+    reference."""
     R = REF_TRIMMED
-    reqs = [
+    return [
         {"id": 0, "cmd": "ping"},
         {"id": 1, "sentence": "Hi.", "ref": R},
         {"id": 2, "sentence": "Hi again.", "ref": "missing_ref"},
@@ -1452,14 +1478,75 @@ def phase_serve(torch, synth, cfg_ref, smi, outdir):
         {"id": 9, "ref": R},
         {"id": 4, "cmd": "shutdown"},
     ]
-    synthesizing = {1, 3, 5, 8}  # one forward and one vocoder call each
+
+
+def check_serve_replies(cfg_ref, by_id: dict, what: str) -> None:
+    """The replies to ``serve_requests`` as ``tests/test_cli.py`` checks
+    them: wav files of mel_len x 256 samples, the errors' contract."""
+    from scipy.io import wavfile
+
+    from styler_tpu_torch.cli.serve import CONTRACT
+
+    def wav_len(path, mel_len):
+        sr, data = wavfile.read(path)
+        check(sr == cfg_ref.sampling_rate and len(data) == mel_len * cfg_ref.hop_length > 0,
+              f"{what}: {path} holds {len(data)} samples at {sr} Hz for mel_len {mel_len}")
+
+    check(by_id[0] == {"id": 0, "ok": True, "pong": True} and by_id[4] == {"id": 4, "ok": True, "bye": True},
+          f"{what}: ping / shutdown")
+    for rid in (1, 3, 8):
+        check(by_id[rid]["ok"], f"{what} request {rid}: {by_id[rid]}")
+        wav_len(by_id[rid]["wav"], by_id[rid]["mel_len"])
+        wav_len(by_id[rid]["wav_noisy"], by_id[rid]["mel_len"])
+    check(by_id[3]["wav"].endswith("custom.flac.wav") and by_id[3]["wav_noisy"].endswith("custom.flac_noisy.wav"),
+          f"{what}: out path {by_id[3]}")
+    check(not by_id[2]["ok"] and "error" in by_id[2], f"{what}: missing reference {by_id[2]}")
+    check(by_id[5]["ok"] and len(by_id[5]["wavs"]) == 2 == len(by_id[5]["mel_lens"])
+          and "truncated" not in by_id[5], f"{what}: batch {by_id[5]}")
+    for w, wn, ml in zip(by_id[5]["wavs"], by_id[5]["wavs_noisy"], by_id[5]["mel_lens"]):
+        wav_len(w, ml)
+        wav_len(wn, ml)
+    check(not by_id[6]["ok"] and "empty" in by_id[6]["error"], f"{what}: empty batch {by_id[6]}")
+    check(not by_id[7]["ok"] and "must match" in by_id[7]["error"], f"{what}: mismatched batch {by_id[7]}")
+    check(by_id[9] == {"id": 9, "ok": False, "error": CONTRACT}, f"{what}: unknown shape {by_id[9]}")
+
+
+def file_vs_synthesize(np, synth, path, ref, spk, what) -> float:
+    """The log-mel MAE of a wav file the server wrote for "Hi." against
+    ``synth.synthesize`` in-process, both through the 16-bit quantisation
+    audiowrite applies; fails at 0.1."""
+    from scipy.io import wavfile
+
+    want = synth.synthesize("Hi.", ref, spk)
+    sr, got = wavfile.read(path)
+    want16 = (np.clip(want["wav"], -1, 1) * 32767).astype(np.int16)
+    check(len(got) == len(want16), f"{what}: the file's length differs from synthesize()'s")
+    mae = float(np.abs(synth.frontend(got / 32767.0)[0] - synth.frontend(want16 / 32767.0)[0]).mean())
+    check(mae < 0.1, f"{what}: the file's log-mel MAE against synthesize() {mae}")
+    return mae
+
+
+def phase_serve(torch, synth, cfg_ref, smi, outdir):
+    """The server's request handler (``cli/serve.py:Server``) on the
+    iSTFTNet synthesizer with the reference directory: the request list of
+    ``tests/test_cli.py:203-222`` once under ``Capture`` (every call of
+    kernels A and B held against its plain version), then again with the
+    launches of each request counted and each reply checked as that test
+    does; the single request's wav file against ``synthesize`` in-process;
+    the ms of a request on a cached reference."""
+    import numpy as np
+
+    from styler_tpu_torch.cli.serve import Server
+
+    R = REF_TRIMMED
+    reqs = serve_requests(outdir)
     server = Server(synth, cfg_ref, outdir)
     with Capture(synth) as cap:
         for req in reqs:
             server.handle(req)
         torch.cuda.synchronize()
     kernels_held = hold_kernels(torch, "serve", cap)
-    check(len(cap.forwards) == len(synthesizing), f"serve: {len(cap.forwards)} forwards")
+    check(len(cap.forwards) == len(SERVE_SYNTHESIZING), f"serve: {len(cap.forwards)} forwards")
     del cap
 
     n = Launches()
@@ -1470,43 +1557,16 @@ def phase_serve(torch, synth, cfg_ref, smi, outdir):
         rep = server.handle(req)
         torch.cuda.synchronize()
         ms[req["id"]] = (time.perf_counter() - t0) * 1e3
-        k = req["id"] in synthesizing
+        k = req["id"] in SERVE_SYNTHESIZING
         launches[req["id"]] = n.check_serving(f"serve request {req['id']}", 36 * k, 2 * k)
         json.dumps(rep)
         by_id[req["id"]] = rep
-
-    def wav_len(path, mel_len):
-        sr, data = wavfile.read(path)
-        check(sr == cfg_ref.sampling_rate and len(data) == mel_len * cfg_ref.hop_length > 0,
-              f"serve: {path} holds {len(data)} samples at {sr} Hz for mel_len {mel_len}")
-
-    check(by_id[0] == {"id": 0, "ok": True, "pong": True} and by_id[4] == {"id": 4, "ok": True, "bye": True},
-          "serve: ping / shutdown")
-    for rid in (1, 3, 8):
-        check(by_id[rid]["ok"], f"serve request {rid}: {by_id[rid]}")
-        wav_len(by_id[rid]["wav"], by_id[rid]["mel_len"])
-        wav_len(by_id[rid]["wav_noisy"], by_id[rid]["mel_len"])
-    check(by_id[3]["wav"].endswith("custom.flac.wav") and by_id[3]["wav_noisy"].endswith("custom.flac_noisy.wav"),
-          f"serve: out path {by_id[3]}")
-    check(not by_id[2]["ok"] and "error" in by_id[2], f"serve: missing reference {by_id[2]}")
-    check(by_id[5]["ok"] and len(by_id[5]["wavs"]) == 2 == len(by_id[5]["mel_lens"])
-          and "truncated" not in by_id[5], f"serve: batch {by_id[5]}")
-    for w, wn, ml in zip(by_id[5]["wavs"], by_id[5]["wavs_noisy"], by_id[5]["mel_lens"]):
-        wav_len(w, ml)
-        wav_len(wn, ml)
-    check(not by_id[6]["ok"] and "empty" in by_id[6]["error"], f"serve: empty batch {by_id[6]}")
-    check(not by_id[7]["ok"] and "must match" in by_id[7]["error"], f"serve: mismatched batch {by_id[7]}")
-    check(by_id[9] == {"id": 9, "ok": False, "error": CONTRACT}, f"serve: unknown shape {by_id[9]}")
+    check_serve_replies(cfg_ref, by_id, "serve")
 
     # the single request's file against synthesize() in-process, both
     # through the 16-bit quantisation audiowrite applies
     ref, spk = server.ref_cache[(R, None, False)]
-    want = synth.synthesize("Hi.", ref, spk)
-    sr, got = wavfile.read(by_id[1]["wav"])
-    want16 = (np.clip(want["wav"], -1, 1) * 32767).astype(np.int16)
-    check(len(got) == len(want16), "serve: the file's length differs from synthesize()'s")
-    mae = float(np.abs(synth.frontend(got / 32767.0)[0] - synth.frontend(want16 / 32767.0)[0]).mean())
-    check(mae < 0.1, f"serve: the file's log-mel MAE against synthesize() {mae}")
+    mae = file_vs_synthesize(np, synth, by_id[1]["wav"], ref, spk, "serve")
 
     # a request on a cached reference: one untimed, three timed
     timed = {"sentence": SENTENCES[1], "ref": R}
@@ -1527,6 +1587,56 @@ def phase_serve(torch, synth, cfg_ref, smi, outdir):
          card=smi)
 
 
+def run_server_child(argv, workdir, what):
+    """``python -m styler_tpu_torch.cli.serve *argv`` as a child process on
+    the card (it inherits ``STYLER_TORCH_BUILD_DIR``): ping, one request on
+    the trimmed reference, shutdown. Checks the exit code, that every
+    stdout line is a JSON reply, the wav's length and that the child built
+    no kernel. Returns (replies, seconds to each reply, seconds to the
+    exit, the child's stderr)."""
+    from scipy.io import wavfile
+
+    from styler_tpu_torch.ops import build
+
+    libs_before = sorted(os.listdir(build.build_dir()))
+    reqs = [{"id": 0, "cmd": "ping"}, {"id": 1, "sentence": SENTENCES[1], "ref": REF_TRIMMED},
+            {"id": 2, "cmd": "shutdown"}]
+    err_path = os.path.join(workdir, f"{what}.stderr")
+    t0 = time.perf_counter()
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "styler_tpu_torch.cli.serve", *argv],
+            cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err, text=True)
+        try:
+            proc.stdin.write("".join(json.dumps(r) + "\n" for r in reqs))
+            proc.stdin.close()
+            lines, at = [], []
+            for line in proc.stdout:
+                lines.append(line)
+                at.append(time.perf_counter() - t0)
+            rc = proc.wait(timeout=300)
+            exit_s = time.perf_counter() - t0
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    with open(err_path) as f:
+        stderr = f.read()
+    check(rc == 0, f"{what}: exit code {rc}: {stderr[-2000:]}")
+    replies = []
+    for line in lines:
+        try:
+            replies.append(json.loads(line))
+        except json.JSONDecodeError:
+            raise RuntimeError(f"{what}: a stdout line is not JSON: {line!r}") from None
+    check([r.get("id") for r in replies] == [0, 1, 2] and replies[0].get("pong") and replies[2].get("bye")
+          and replies[1].get("ok"), f"{what}: replies {replies}")
+    sr, data = wavfile.read(os.path.join(ROOT, replies[1]["wav"]))
+    check(len(data) == replies[1]["mel_len"] * 256 > 0, f"{what}: wav of {len(data)} samples")
+    check(sorted(os.listdir(build.build_dir())) == libs_before, f"{what}: the child built kernels")
+    return replies, at, exit_s, stderr
+
+
 def phase_serve_cli(np, cfg_ref, smi, workdir):
     """``python -m styler_tpu_torch.cli.serve`` as a child process on the card
     (it inherits ``STYLER_TORCH_BUILD_DIR``, so it builds nothing): ping,
@@ -1538,43 +1648,9 @@ def phase_serve_cli(np, cfg_ref, smi, workdir):
 
     libs_before = sorted(os.listdir(build.build_dir()))
     refs = cfg_ref.ref_audio_dir
-    outdir = os.path.join(workdir, "serve_cli")
-    reqs = [{"id": 0, "cmd": "ping"}, {"id": 1, "sentence": SENTENCES[1], "ref": REF_TRIMMED},
-            {"id": 2, "cmd": "shutdown"}]
-    err_path = os.path.join(workdir, "serve_cli.stderr")
-    t0 = time.perf_counter()
-    with open(err_path, "w") as err:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "styler_tpu_torch.cli.serve", "--ref_audio_dir", refs,
-             "--ref_tg_dir", refs, "--outdir", outdir],
-            cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err, text=True)
-        try:
-            proc.stdin.write("".join(json.dumps(r) + "\n" for r in reqs))
-            proc.stdin.close()
-            lines, at = [], []
-            for line in proc.stdout:
-                lines.append(line)
-                at.append(time.perf_counter() - t0)
-            rc = proc.wait(timeout=300)
-            serve_s = time.perf_counter() - t0
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    with open(err_path) as f:
-        stderr_tail = f.read()[-2000:]
-    check(rc == 0, f"serve_cli: exit code {rc}: {stderr_tail}")
-    replies = []
-    for line in lines:
-        try:
-            replies.append(json.loads(line))
-        except json.JSONDecodeError:
-            raise RuntimeError(f"serve_cli: a stdout line is not JSON: {line!r}") from None
-    check([r.get("id") for r in replies] == [0, 1, 2] and replies[0].get("pong") and replies[2].get("bye")
-          and replies[1].get("ok"), f"serve_cli: replies {replies}")
-    sr, data = wavfile.read(os.path.join(ROOT, replies[1]["wav"]))
-    check(len(data) == replies[1]["mel_len"] * 256 > 0, f"serve_cli: wav of {len(data)} samples")
-    check(sorted(os.listdir(build.build_dir())) == libs_before, "serve_cli: the child built kernels")
+    replies, at, serve_s, _ = run_server_child(
+        ["--ref_audio_dir", refs, "--ref_tg_dir", refs, "--outdir", os.path.join(workdir, "serve_cli")],
+        workdir, "serve_cli")
 
     out2 = os.path.join(workdir, "synthesize_cli")
     t1 = time.perf_counter()
@@ -1594,6 +1670,270 @@ def phase_serve_cli(np, cfg_ref, smi, workdir):
     emit("serve_cli", first_reply_s=at[0], request_reply_s=at[1], request_ms=replies[1]["ms"],
          exit_s=serve_s, mel_len=replies[1]["mel_len"],
          synthesize_cli_s=synth_s, synthesize_cli_mel_len=int(mel.shape[0]), card=smi)
+
+
+def sync_count(torch, fn):
+    """(fn(), the synchronising CUDA operations it ran): warnings of
+    ``torch.cuda.set_sync_debug_mode("warn")``, one per synchronisation."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def bundle_vs_live(np, synth, what, got, want) -> dict:
+    """A bundle's result (a graph replay) against the live eager result of
+    the same request: which keys are bit-equal, and ``hold_request``'s
+    tolerances (those of the serve phase's file check and the batch rows)
+    on everything that is not."""
+    keys = ("mel", "mel_noisy", "wav", "wav_noisy", "f0", "energy")
+    check(got["mel_len"] == want["mel_len"], f"{what}: mel_len {got['mel_len']}, live {want['mel_len']}")
+    differs = [k for k in keys if not np.array_equal(got[k], want[k])]
+    rec = {"mel_len": got["mel_len"], "bit_equal": not differs}
+    if differs:
+        sm = synth.model.style_modeling
+        bins = (sm.pitch_bins.cpu().numpy(), sm.energy_bins.cpu().numpy())
+        rec["differs"] = {k: float(np.abs(got[k] - want[k]).max()) for k in differs}
+        rec["held"] = hold_request(np, synth.frontend, bins, what, got, want)
+    return rec
+
+
+def phase_bundle(torch, synth, cfg, ref, spk, smi, workdir):
+    """The serving bundle (``core/export.py``) of the iSTFTNet synthesizer:
+    exported at the default buckets (5 x 5) for batches 1 and 8, loaded
+    through ``BundleSynthesizer`` and warmed (every entry captured as a
+    CUDA graph after one eager forward, then replayed once); the capture
+    seconds, graph count and the memory the pool holds; ``main``'s requests
+    and one 8-row batch against the live eager ``synthesize`` /
+    ``synthesize_batch`` (bit-equal expected, else named and held);
+    kernels A and B held against their plain versions on the calls
+    recorded while an entry was captured, read back after a replay of a
+    real request; A's and B's kernels in a profiler trace of one replay;
+    synchronisations per call; request wall and device idle share, graph
+    against eager. Returns the BundleSynthesizer and its directory."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from styler_tpu_torch.core.config import bucket_for
+    from styler_tpu_torch.core.export import BundleSynthesizer, save_serving_bundle
+
+    out = os.path.join(workdir, "bundle_istft")
+    t0 = time.perf_counter()
+    manifest = save_serving_bundle(synth, out, batch=(1, 8))
+    export_s = time.perf_counter() - t0
+    n_entries = 2 * len(cfg.src_buckets) * len(cfg.mel_buckets)
+    check(len(manifest["entries"]) == n_entries == 50, f"bundle: {len(manifest['entries'])} entries")
+    t0 = time.perf_counter()
+    bs = BundleSynthesizer(out, cfg)
+    bundle = bs.bundle
+    load_s = time.perf_counter() - t0
+    check(bundle.device.type == "cuda" and bundle.mel_out == cfg.mel_buckets[-1], "bundle: not on the card")
+
+    n = Launches()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mem0 = (torch.cuda.memory_reserved(), torch.cuda.memory_allocated())
+    n.reset()
+    t0 = time.perf_counter()
+    count = bs.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    launches = n.read()
+    mem1 = (torch.cuda.memory_reserved(), torch.cuda.memory_allocated())
+    torch.cuda.empty_cache()  # what stays reserved is the graphs' pool and the static buffers
+    mem2 = (torch.cuda.memory_reserved(), torch.cuda.memory_allocated())
+    check(count == n_entries == len(bundle._graphs), f"bundle: warmup {count}, graphs {len(bundle._graphs)}")
+    # per entry one eager forward and one capture, 36 launches of A and 2
+    # of B each; the replays launch nothing through the wrappers
+    check(launches["resblock_stage"] == 72 * count and launches["lstm_recurrence"] == 4 * count
+          and launches["resblock_stage_int8"] == launches["lstm_backward"] == 0,
+          f"bundle warmup: launches {launches}")
+    gib = 2.0 ** 30
+    emit("bundle_capture", export_s=export_s, load_s=load_s, warmup_s=warm_s, graphs=len(bundle._graphs),
+         per_graph_s=warm_s / count, launches_at_capture=launches,
+         reserved_gib_before=mem0[0] / gib, reserved_gib_after=mem1[0] / gib,
+         reserved_gib_after_empty_cache=mem2[0] / gib, allocated_gib_before=mem0[1] / gib,
+         allocated_gib_after=mem2[1] / gib, pool_gib=(mem2[0] - mem0[0]) / gib, card=smi)
+
+    # main's requests and one 8-row batch: graph against live eager
+    n.reset()
+    main = []
+    for s in SENTENCES:
+        got, want = bs.synthesize(s, ref, spk), synth.synthesize(s, ref, spk)
+        main.append({"sentence": s[:40], **bundle_vs_live(np, synth, f"bundle {s[:20]}", got, want)})
+    got = bs.synthesize_batch(list(BATCH_SENTENCES), [ref] * 8, [spk] * 8)
+    want = synth.synthesize_batch(list(BATCH_SENTENCES), [ref] * 8, [spk] * 8)
+    batch = [bundle_vs_live(np, synth, f"bundle batch row {i}", g, w) for i, (g, w) in enumerate(zip(got, want))]
+    replay_launches = n.read()
+    check(replay_launches["resblock_stage"] == 36 * (len(SENTENCES) + 1)
+          and replay_launches["lstm_recurrence"] == 2 * (len(SENTENCES) + 1),
+          f"bundle: launches {replay_launches} in the comparison (only the live side's expected)")
+
+    # kernels A and B on the calls recorded while an entry was captured:
+    # the recorded tensors live in the graph's pool and hold the values of
+    # the replay that follows (nothing else writes them while they live)
+    ids = bs.text_to_ids(SENTENCES[1])
+    key = (1, bundle._bucket(1, len(ids)), bundle._bucket(2, ref.mel_len))
+    check(key[1] == bucket_for(len(ids), cfg.src_buckets), "bundle: src bucket")
+    del bundle._graphs[key]
+    with Capture(bundle.synth) as cap:
+        bundle.graph(key)
+    # per forward 2 stage calls of A and 2 layer calls of B: the eager
+    # forward's calls, then the capture's
+    for name, calls in cap.calls.items():
+        check(len(calls) == 4,
+              f"bundle: {len(calls)} recorded calls of {name}")
+        cap.calls[name] = calls[len(calls) // 2:]
+    got = bs.synthesize(SENTENCES[1], ref, spk)
+    torch.cuda.synchronize()
+    ns = got["mel_len"] * cfg.hop_length
+    check(np.array_equal(cap.forwards[1][2][1][0, :ns].cpu().numpy(), got["wav"]),
+          "bundle: the recorded graph output is not the replay's")
+    kernels_held = hold_kernels(torch, "bundle", cap)
+    del cap
+
+    # one replay under the profiler: A's and B's kernels in its trace
+    def profiled(fn):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        rows, host = profile_rows(torch, prof)
+        busy = sum(r[2] for r in rows)
+        return {"wall_ms": wall, "device_busy_ms": busy, "device_idle_share": 1 - busy / wall,
+                "host_ops": sum(r[1] for r in host),
+                "kernel_a": sum(c for k, c, _ in rows if "resblock_" in k),
+                "kernel_b": sum(c for k, c, _ in rows if "lstm_" in k),
+                "top": [{"kernel": k[:90], "count": c, "ms": ms} for k, c, ms in rows[:8]]}
+
+    s = SENTENCES[-1]
+    graph_prof = profiled(lambda: bs.synthesize(s, ref, spk))
+    eager_prof = profiled(lambda: synth.synthesize(s, ref, spk))
+    emit("bundle_profile", graph=graph_prof, eager=eager_prof, sentence=s[:40])
+    check(graph_prof["kernel_a"] == 36 and graph_prof["kernel_b"] == 2,
+          f"bundle: the replay's trace holds {graph_prof['kernel_a']} launches of A and "
+          f"{graph_prof['kernel_b']} of B (36 and 2 expected)")
+
+    # synchronisations per call, and wall times in turns
+    _, syncs_graph = sync_count(torch, lambda: bs.synthesize(s, ref, spk))
+    _, syncs_eager = sync_count(torch, lambda: synth.synthesize(s, ref, spk))
+    zeros = [np.full(sh, fill, np.float32) for sh, _, fill in bundle._specs((1, 128, 512))]
+    _, syncs_call = sync_count(torch, lambda: bundle._run((1, 128, 512), zeros[:7] + [1.0, 1.0, 1.0]))
+    check(syncs_call == 1, f"bundle: {syncs_call} synchronisations in one call")
+    walls = {"eager": [], "graph": []}
+    for order in (("eager", "graph"), ("graph", "eager"), ("eager", "graph"), ("graph", "eager")):
+        for which in order:
+            fn = synth.synthesize if which == "eager" else bs.synthesize
+            t0 = time.perf_counter()
+            fn(s, ref, spk)
+            torch.cuda.synchronize()
+            walls[which].append((time.perf_counter() - t0) * 1e3)
+    emit("bundle", main=main, batch_rows=batch, kernels_held=kernels_held, replay_key=list(key),
+         syncs_per_request={"graph": syncs_graph, "eager": syncs_eager},
+         syncs_per_call=syncs_call, wall_ms=walls,
+         mean_wall_ms={k: sum(v) / len(v) for k, v in walls.items()}, sentence=s[:40], card=smi)
+    return bs, out
+
+
+def phase_bundle_hifigan(torch, synth, cfg, ref, spk, want, workdir, what):
+    """One entry of a HiFi-GAN bundle (bf16, or int8 when ``synth`` runs
+    the int8 form) at the bucket of ``SENTENCES[0]``'s request, captured
+    and replayed: the launches at capture (one eager forward and the
+    capture; none at replay), and the replay against ``want``, the live
+    request's result."""
+    import numpy as np
+
+    from styler_tpu_torch.core.config import bucket_for
+    from styler_tpu_torch.core.export import ServingBundle, save_serving_bundle
+
+    ids = synth.text_to_ids(SENTENCES[0])
+    L, M = bucket_for(len(ids), cfg.src_buckets), bucket_for(ref.mel_len, cfg.mel_buckets)
+    out = os.path.join(workdir, f"bundle_{what}")
+    # the output cap stays the largest bucket, as on the live path
+    manifest = save_serving_bundle(synth, out, src_buckets=(L,), mel_buckets=sorted({M, cfg.mel_buckets[-1]}))
+    int8 = synth.generator.quantize
+    check(manifest["vocoder_form"] == ("int8" if int8 else "bf16"), f"{what}: form {manifest['vocoder_form']}")
+    bundle = ServingBundle(out)
+    check(bundle.synth.generator.quantize == int8, f"{what}: the bundle's vocoder form")
+    n = Launches()
+    n.reset()
+    t0 = time.perf_counter()
+    got = bundle.synthesize(ids, ref.mel[: ref.mel_len], ref.f0_norm[: ref.mel_len],
+                            ref.energy01[: ref.mel_len], spk)
+    capture_s = time.perf_counter() - t0
+    at_capture = n.read()
+    a = "resblock_stage_int8" if int8 else "resblock_stage"
+    check(at_capture[a] == 2 * 72 and at_capture["lstm_recurrence"] == 4
+          and at_capture["resblock_stage_int8_prep"] == (8 if int8 else 0),
+          f"{what}: launches at capture {at_capture}")
+    n.reset()
+    again = bundle.synthesize(ids, ref.mel[: ref.mel_len], ref.f0_norm[: ref.mel_len],
+                              ref.energy01[: ref.mel_len], spk)
+    check(sum(n.read().values()) == 0 and np.array_equal(again["wav"], got["wav"]), f"{what}: replay")
+    rec = bundle_vs_live(np, synth, what, got, want)
+    emit(what, entry=[1, L, M], vocoder_form=manifest["vocoder_form"], capture_s=capture_s,
+         launches_at_capture=at_capture, **rec)
+    del bundle
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def phase_serve_bundle(torch, np, synth, bs, bundle_dir, cfg_ref, smi, workdir):
+    """The server's handler over ``BundleSynthesizer`` on ``serve``'s
+    request list (every request after the warmup replays a captured graph:
+    no kernel launch), the single request's file against the live
+    ``synthesize``, three timed requests on a cached reference; then
+    ``python -m styler_tpu_torch.cli.serve --bundle DIR --warmup`` as a
+    child process that builds no kernel."""
+    from styler_tpu_torch.cli.serve import Server
+
+    outdir = os.path.join(workdir, "serve_bundle")
+    server = Server(bs, cfg_ref, outdir)
+    n = Launches()
+    by_id, ms = {}, {}
+    for req in serve_requests(outdir):
+        n.reset()
+        t0 = time.perf_counter()
+        rep = server.handle(req)
+        torch.cuda.synchronize()
+        ms[req["id"]] = (time.perf_counter() - t0) * 1e3
+        check(sum(n.read().values()) == 0, f"serve_bundle request {req['id']}: launches {n.read()}")
+        json.dumps(rep)
+        by_id[req["id"]] = rep
+    check_serve_replies(cfg_ref, by_id, "serve_bundle")
+    ref, spk = server.ref_cache[(REF_TRIMMED, None, False)]
+    mae = file_vs_synthesize(np, synth, by_id[1]["wav"], ref, spk, "serve_bundle")
+
+    timed = {"sentence": SENTENCES[1], "ref": REF_TRIMMED}
+    server.handle(timed)
+    walls, replies_ms = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        rep = server.handle(timed)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        replies_ms.append(rep["ms"])
+        check(rep["ok"], f"serve_bundle timed request: {rep}")
+
+    refs = cfg_ref.ref_audio_dir
+    replies, at, exit_s, stderr = run_server_child(
+        ["--bundle", bundle_dir, "--warmup", "--ref_audio_dir", refs, "--ref_tg_dir", refs,
+         "--outdir", os.path.join(workdir, "serve_bundle_cli")], workdir, "serve_bundle_cli")
+    warm = re.search(r"warmup: (\d+) forwards in ([\d.]+)s", stderr)
+    check(warm is not None and int(warm.group(1)) == len(bs.bundle._entries),
+          f"serve_bundle_cli: no warmup of every entry in its log: {stderr[-1000:]}")
+    emit("serve_bundle", request_ms=ms, wav_vs_synthesize_log_mel_mae=mae, cached_request_wall_ms=walls,
+         cached_request_reply_ms=replies_ms, sentence=SENTENCES[1], mel_len=rep["mel_len"],
+         child_first_reply_s=at[0], child_warmup_s=float(warm.group(2)), child_request_reply_s=at[1],
+         child_request_ms=replies[1]["ms"], child_exit_s=exit_s, card=smi)
 
 
 def phase_hifigan(torch, cfg, mel2b, ref, spk, smi):
@@ -1617,11 +1957,13 @@ def phase_hifigan(torch, cfg, mel2b, ref, spk, smi):
 
     outs, launches = run_requests(torch, synth, ref, spk, cfg, "main_hifigan", smi)
     emit("main_hifigan_launches", **launches)
+    workdir = tempfile.mkdtemp(prefix="smoke-bundles-", dir=os.path.join(ROOT, "styler_tpu_torch", "_build"))
     check(launches["resblock_stage"] == per_request * len(SENTENCES)
           and launches["resblock_stage_int8"] == 0,
           f"HiFi-GAN path: kernel A launched {launches['resblock_stage']} times, the int8 kernel "
           f"{launches['resblock_stage_int8']} (expected {per_request} and 0 per request)")
     phase_profile(torch, synth, SENTENCES[-1], ref, spk, "profile_hifigan")
+    phase_bundle_hifigan(torch, synth, cfg, ref, spk, outs[0], workdir, "bundle_hifigan")
 
     os.environ["STYLER_TPU_INT8_VOCODER"] = "1"
     try:
@@ -1640,6 +1982,8 @@ def phase_hifigan(torch, cfg, mel2b, ref, spk, smi):
           f"pass {launches_q['resblock_stage_int8_prep']}, kernel A {launches_q['resblock_stage']} "
           f"(expected {per_request}, 4 and 0 per request)")
     phase_profile(torch, synth_q, SENTENCES[-1], ref, spk, "profile_int8")
+    phase_bundle_hifigan(torch, synth_q, cfg, ref, spk, outs_q[0], workdir, "bundle_int8")
+    shutil.rmtree(workdir, ignore_errors=True)
     # quality of the int8 vocoder against the bf16 one: fail only on a
     # non-finite result (checked above) or a log-mel MAE above 1.0; the JAX
     # package's own measurement on the trained weights was about 0.37
@@ -1975,6 +2319,10 @@ def main() -> int:
         phase_reference(synth, cfg_ref, embedder, smi)
         phase_serve(torch, synth, cfg_ref, smi, os.path.join(refroot, "serve"))
         phase_serve_cli(np, cfg_ref, smi, refroot)
+        # 6c. the serving bundle: CUDA graphs per entry, and the server on it
+        bs, bundle_dir = phase_bundle(torch, synth, cfg, ref, spk, smi, refroot)
+        phase_serve_bundle(torch, np, synth, bs, bundle_dir, cfg_ref, smi, refroot)
+        del bs
     finally:
         shutil.rmtree(refroot, ignore_errors=True)
     del synth

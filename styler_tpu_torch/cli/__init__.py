@@ -4,9 +4,11 @@ cpu``:
 - ``python -m styler_tpu_torch.cli.synthesize``, the flags of
   ``cli/synthesize.py``;
 - ``python -m styler_tpu_torch.cli.serve``, the JSON-lines server of
-  ``cli/serve.py``.
+  ``cli/serve.py`` (``--bundle DIR`` serves an exported bundle);
+- ``python -m styler_tpu_torch.cli.export``, the bundle export of
+  ``cli/export.py``.
 
-This module holds the flags and checks the two share. It imports nothing
+This module holds the flags and checks they share. It imports nothing
 beyond the standard library, because the server points ``sys.stdout`` at
 stderr before the port (and torch) is imported.
 """
@@ -42,7 +44,7 @@ def add_model_flags(parser: argparse.ArgumentParser) -> None:
 def refuse_unported(args: argparse.Namespace) -> None:
     """Raise ``NotImplementedError`` naming its ROADMAP item for a flag the
     port does not carry out yet (``--ckpt`` forms: ``load_synthesizer``)."""
-    if args.bf16:
+    if getattr(args, "bf16", False):
         raise NotImplementedError(
             "--bf16: a bfloat16 acoustic model is a later slice of the port "
             "(ROADMAP.md, Queue 1 [9])")

@@ -35,9 +35,15 @@ Usage:
   python -m styler_tpu_torch.cli.serve --ref_audio_dir refs/ \\
       --ref_tg_dir refs/ [--outdir wavs/] [--warmup] [--device cpu]
 
+``--bundle DIR`` serves an exported bundle (``python -m
+styler_tpu_torch.cli.export``) through ``core/export.py:BundleSynthesizer``:
+one CUDA graph per (batch, src bucket, mel bucket) entry of the bundle,
+captured at the entry's first request, or all before serving with
+``--warmup``. A sentence past the bundle's largest src bucket is truncated
+(``truncated`` in a batch reply), not chunked.
+
 ``Server.handle`` answers one request; ``main`` parses the flags and runs
-the stdin loop. ``--bundle`` (an exported serving bundle: CUDA graphs per
-bucket) and ``--bf16`` raise ``NotImplementedError``.
+the stdin loop. ``--bf16`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -167,10 +173,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                                      description="JSON-lines synthesis server.")
     add_model_flags(parser)
     parser.add_argument("--bundle", type=str, default=None,
-                        help="serve from an exported bundle: raises, not ported yet")
+                        help="serve an exported bundle (CUDA graphs per bucket entry); the "
+                             "weight and bucket flags are then the bundle's")
     parser.add_argument("--outdir", type=str, default="serve_out")
     parser.add_argument("--warmup", action="store_true",
-                        help="one forward per (batch, src, mel) bucket before serving")
+                        help="one forward per (batch, src, mel) bucket before serving; with "
+                             "--bundle, every entry of the bundle captured and replayed")
     parser.add_argument("--warmup_batches", type=int, nargs="+", default=[1],
                         help="largest batch size to warm; expanded to every power of "
                              "two up to it")
@@ -180,10 +188,6 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None) -> int:
     args = parse_args(argv)
     refuse_unported(args)
-    if args.bundle:
-        raise NotImplementedError(
-            "--bundle: serving from an exported bundle (CUDA graphs per bucket) is the "
-            "next slice of the port (ROADMAP.md, Queue 1 [11])")
 
     # Own stdout: replies go to a private duplicate of it, and both
     # sys.stdout and file descriptor 1 point at stderr before the port is
@@ -194,15 +198,23 @@ def main(argv=None) -> int:
     os.dup2(sys.stderr.fileno(), sys.stdout.fileno())
     sys.stdout = sys.stderr
 
-    from styler_tpu_torch.synthesis import load_synthesizer
-
     cfg = config_from_args(args)
-    synth = load_synthesizer(cfg, args.ckpt, args.vocoder_ckpt, vocoder_arch=args.vocoder,
-                             device=args.device)
+    if args.bundle:
+        from styler_tpu_torch.core.export import BundleSynthesizer
+
+        synth = BundleSynthesizer(args.bundle, cfg, device=args.device)
+    else:
+        from styler_tpu_torch.synthesis import load_synthesizer
+
+        synth = load_synthesizer(cfg, args.ckpt, args.vocoder_ckpt, vocoder_arch=args.vocoder,
+                                 device=args.device)
     server = Server(synth, cfg, args.outdir)
     if args.warmup:
         t0 = time.perf_counter()
-        n_warm = synth.warmup(batches=warmup_batch_sizes(max(args.warmup_batches)))
+        if args.bundle:  # every entry of the bundle, whatever --warmup_batches says
+            n_warm = synth.warmup()
+        else:
+            n_warm = synth.warmup(batches=warmup_batch_sizes(max(args.warmup_batches)))
         print(f"warmup: {n_warm} forwards in {time.perf_counter() - t0:.1f}s",
               file=sys.stderr, flush=True)
 

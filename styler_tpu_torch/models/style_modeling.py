@@ -19,6 +19,12 @@ The ``encodings`` dict is the controllability contract:
 ``predict_inference`` runs the predictors, the length regulator and the
 embeddings on such encodings after the caller has mixed them (the
 inspection grid and mix-and-match of ``synthesis.py``).
+
+The controls (``d_control``, ``p_control``, ``e_control``) are Python
+floats or 0-d float32 tensors on the model's device: a CUDA graph captured
+with tensor controls reads them at every replay, where a float would be
+baked into the captured kernels' arguments. Either form multiplies in
+float32, so the two give the same bits.
 """
 
 from __future__ import annotations
@@ -42,6 +48,9 @@ from styler_tpu_torch.models.transformer import TextEncoder
 from styler_tpu_torch.ops.masking import mask_from_lengths
 from styler_tpu_torch.ops.regulate import length_regulate
 from styler_tpu_torch.textproc.symbols import VOCAB_SIZE
+
+#: a control: a Python float or a 0-d float32 tensor (module docstring)
+Control = Union[float, torch.Tensor]
 
 
 class ChannelUp(nn.Module):
@@ -154,7 +163,7 @@ class StyleModeling(nn.Module):
             self.augmentation_classifier_e(e_enc, src_mask),
         )
 
-    def duration_rounded(self, log_d_prediction, d_control):
+    def duration_rounded(self, log_d_prediction, d_control: Control):
         """round(exp(ld) - log_offset) (half to even) * d_control, >= 0, int."""
         rounded = torch.round(torch.exp(log_d_prediction) - self.config.log_offset)
         return torch.clamp(rounded * d_control, min=0.0).to(torch.int32)
@@ -163,7 +172,7 @@ class StyleModeling(nn.Module):
         self,
         src_seq, speaker_embed, mel_target, mel_aug, p_norm, e_input,
         src_len, mel_len, src_mask, max_mel_len: int,
-        d_control: float = 1.0, p_control: float = 1.0, e_control: float = 1.0,
+        d_control: Control = 1.0, p_control: Control = 1.0, e_control: Control = 1.0,
         mel_mask: Optional[torch.Tensor] = None,
         d_target: Optional[torch.Tensor] = None,
         p_target: Optional[torch.Tensor] = None,
@@ -259,7 +268,7 @@ class StyleModeling(nn.Module):
         text_encoding, pitch_encoding, energy_encoding, duration_encoding,
         speaker_encoding, noise_encoding, src_mask, max_mel_len: int,
         speaker_normalized: Union[bool, torch.Tensor] = True,
-        d_control: float = 1.0, p_control: float = 1.0, e_control: float = 1.0,
+        d_control: Control = 1.0, p_control: Control = 1.0, e_control: Control = 1.0,
     ):
         """Inference over externally mixed encodings, all [B, L, 256]
         (reference modules.py:285-309). ``speaker_normalized``: a bool, or

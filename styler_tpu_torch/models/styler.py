@@ -20,7 +20,7 @@ import torch
 import torch.nn as nn
 
 from styler_tpu_torch.core.config import Config
-from styler_tpu_torch.models.style_modeling import StyleModeling
+from styler_tpu_torch.models.style_modeling import Control, StyleModeling
 from styler_tpu_torch.models.transformer import MelDecoder, PostNet
 from styler_tpu_torch.ops.masking import mask_from_lengths
 
@@ -70,7 +70,8 @@ class STYLER(nn.Module):
 
     def encode_style(self, src_seq, mel_target, mel_aug, p_norm, e_input, src_len, mel_len,
                      max_mel_len: int, speaker_embed,
-                     d_control: float = 1.0, p_control: float = 1.0, e_control: float = 1.0):
+                     d_control: Control = 1.0, p_control: Control = 1.0,
+                     e_control: Control = 1.0):
         """The style-modeling forward with predicted durations and no
         decode: the encodings producer of the inspection grid and of
         mix-and-match, which decode mixed encodings of their own.
@@ -104,9 +105,9 @@ class STYLER(nn.Module):
         mel_len: torch.Tensor,
         max_mel_len: int,
         speaker_embed: torch.Tensor,
-        d_control: float = 1.0,
-        p_control: float = 1.0,
-        e_control: float = 1.0,
+        d_control: Control = 1.0,
+        p_control: Control = 1.0,
+        e_control: Control = 1.0,
         d_target: Optional[torch.Tensor] = None,
         p_target: Optional[torch.Tensor] = None,
         e_target: Optional[torch.Tensor] = None,

@@ -145,13 +145,16 @@ class Synthesizer:
 
     ``STYLER_TPU_INT8_VOCODER=1``, read once here as the JAX package does,
     runs HiFi-GAN's resblock stages in kernel A's int8 form (approximate;
-    ignored for iSTFTNet)."""
+    ignored for iSTFTNet); ``int8_vocoder`` given as a bool overrides it
+    (a serving bundle records its vocoder form)."""
 
     def __init__(self, config: Config, params: dict, batch_stats: dict,
-                 vocoder_params: dict, device=None):
+                 vocoder_params: dict, device=None, int8_vocoder: Optional[bool] = None):
         self.config = config
         self.device = resolve_device(device)
-        self.int8_vocoder = os.environ.get("STYLER_TPU_INT8_VOCODER", "0") == "1"
+        if int8_vocoder is None:
+            int8_vocoder = os.environ.get("STYLER_TPU_INT8_VOCODER", "0") == "1"
+        self.int8_vocoder = int8_vocoder
         self.generator = make_generator(config.vocoder, torch.bfloat16,
                                         quantize=self.int8_vocoder)
         load_flax_tree(self.generator, vocoder_params)
@@ -278,6 +281,12 @@ class Synthesizer:
     @torch.no_grad()
     def _forward(self, src_seq, src_len, mel, f0_norm, energy01, mel_len,
                  speaker_embed, d_control, p_control, e_control, max_mel_len):
+        """The device program of one request or batch: style encode,
+        prediction, the dual decode and one 2B-row vocoder pass. Returns
+        (model output, clean wav [B, max_mel_len * hop], noisy wav). The
+        controls are floats or 0-d float32 tensors on the device
+        (``models/style_modeling.py``); it reads nothing back to the host,
+        so ``core/export.py`` captures it whole in a CUDA graph."""
         out = self.model(
             src_seq, mel, mel, f0_norm, energy01, src_len, mel_len,
             max_mel_len, speaker_embed, d_control, p_control, e_control,

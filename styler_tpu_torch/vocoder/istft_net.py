@@ -10,7 +10,7 @@ conv_post -> magnitude/phase -> a 16-point inverse STFT with hop 4.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,24 +40,38 @@ class ISTFTNetConfig:
     num_mels: int = 80
 
 
-def inverse_stft(mag: torch.Tensor, phase: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
-    """[B, T, n_fft//2+1] magnitude/phase -> wav [B, T*hop]: windowed irfft
-    per frame, overlap-add, window-square (COLA) division, center crop of
-    n_fft//2 (torch.istft(center=True) framing). Requires hop | n_fft."""
-    if n_fft % hop:
-        raise ValueError("hop must divide n_fft")
-    B, T, _ = mag.shape
-    window = torch.from_numpy(hann_periodic(n_fft)).float().to(mag.device)
-    frames = torch.fft.irfft(torch.polar(mag, phase), n=n_fft, dim=-1) * window
+def istft_tables(n_fft: int, hop: int, T: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The f32 synthesis window [n_fft] and the COLA divisor [(T-1)*hop +
+    n_fft] (the overlap-added squared window, at least 1e-9, summed in
+    float64) of ``inverse_stft`` over T frames, on ``device``."""
     L = (T - 1) * hop + n_fft
-    out = torch.zeros(B, L, device=mag.device, dtype=torch.float32)
     wsum = np.zeros(L, np.float64)
     w2 = hann_periodic(n_fft) ** 2
     for c in range(n_fft // hop):
+        wsum[c * hop : c * hop + T * hop] += np.tile(w2[c * hop : (c + 1) * hop], T)
+    window = torch.from_numpy(hann_periodic(n_fft)).float().to(device)
+    divisor = torch.from_numpy(np.maximum(wsum, 1e-9).astype(np.float32)).to(device)
+    return window, divisor
+
+
+def inverse_stft(mag: torch.Tensor, phase: torch.Tensor, n_fft: int, hop: int,
+                 tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+    """[B, T, n_fft//2+1] magnitude/phase -> wav [B, T*hop]: windowed irfft
+    per frame, overlap-add, window-square (COLA) division, center crop of
+    n_fft//2 (torch.istft(center=True) framing). Requires hop | n_fft.
+    ``tables``: ``istft_tables(n_fft, hop, T, mag.device)``, made here if
+    not given (two host-to-device copies)."""
+    if n_fft % hop:
+        raise ValueError("hop must divide n_fft")
+    B, T, _ = mag.shape
+    window, divisor = tables if tables is not None else istft_tables(n_fft, hop, T, mag.device)
+    frames = torch.fft.irfft(torch.polar(mag, phase), n=n_fft, dim=-1) * window
+    L = (T - 1) * hop + n_fft
+    out = torch.zeros(B, L, device=mag.device, dtype=torch.float32)
+    for c in range(n_fft // hop):
         seg = frames[:, :, c * hop : (c + 1) * hop].reshape(B, T * hop)
         out[:, c * hop : c * hop + T * hop] += seg
-        wsum[c * hop : c * hop + T * hop] += np.tile(w2[c * hop : (c + 1) * hop], T)
-    out = out / torch.from_numpy(np.maximum(wsum, 1e-9).astype(np.float32)).to(mag.device)
+    out = out / divisor
     return out[:, n_fft // 2 : n_fft // 2 + T * hop]
 
 
@@ -66,12 +80,16 @@ class ISTFTNetGenerator(nn.Module):
 
     ``compute_dtype`` (bfloat16 by default, as the reference's
     ``make_generator``) is the dtype of every conv's inputs; the resblock
-    stages keep their residual carry in f32 (kernel A)."""
+    stages keep their residual carry in f32 (kernel A). The inverse STFT's
+    window and COLA divisor are made once per (frame count, device) and
+    kept, so a forward copies nothing from the host and can be captured in
+    a CUDA graph."""
 
     def __init__(self, config: ISTFTNetConfig = ISTFTNetConfig(), compute_dtype=torch.bfloat16):
         super().__init__()
         cfg = self.config = config
         self.compute_dtype = compute_dtype
+        self._istft: Dict[Tuple[int, torch.device], Tuple[torch.Tensor, torch.Tensor]] = {}
         ch = cfg.upsample_initial_channel
         self.conv_pre = nn.Conv1d(cfg.num_mels, ch, 7, padding=3)
         for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
@@ -109,4 +127,7 @@ class ISTFTNetGenerator(nn.Module):
         x = self._conv(self.conv_post, F.leaky_relu(x, 0.01)).float()
         mag = torch.exp(torch.clamp(x[..., : self.n_bins], -12.0, 8.0))
         phase = x[..., self.n_bins :]
-        return inverse_stft(mag, phase, cfg.istft_n_fft, cfg.istft_hop)
+        key = (x.shape[1], x.device)
+        if key not in self._istft:
+            self._istft[key] = istft_tables(cfg.istft_n_fft, cfg.istft_hop, *key)
+        return inverse_stft(mag, phase, cfg.istft_n_fft, cfg.istft_hop, self._istft[key])

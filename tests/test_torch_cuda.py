@@ -811,3 +811,140 @@ def test_speaker_encoder_card_vs_cpu(speaker_embedders, i):
     assert got.shape == want.shape == (1, 512) and np.isfinite(got).all()
     assert abs(float(np.linalg.norm(got)) - 1.0) < 1e-4
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The serving bundle (core/export.py): one CUDA graph per entry, on the
+# committed trained assets at full width and small buckets
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def cuda_bundle(cuda_device, tmp_path_factory):
+    from styler_tpu_torch.core.config import default_config
+    from styler_tpu_torch.core.export import ServingBundle, save_serving_bundle
+    from styler_tpu_torch.synthesis import load_synthesizer
+
+    cfg = default_config().replace(src_buckets=(32, 64), mel_buckets=(64,))
+    out = str(tmp_path_factory.mktemp("cuda_bundle"))
+    save_serving_bundle(load_synthesizer(cfg), out, batch=(1, 2))
+    return ServingBundle(out)
+
+
+def _bundle_arrays(key, seed, n_ids, n_frames, controls=(1.0, 1.0, 1.0)):
+    """Seeded inputs of an entry (B, L, M): ``n_ids`` phonemes and
+    ``n_frames`` reference frames in every row, zero padding after."""
+    B, L, M = key
+    rng = np.random.default_rng(seed)
+    src = np.zeros((B, L), np.int64)
+    src[:, :n_ids] = rng.integers(1, 70, (B, n_ids))
+    mel = np.zeros((B, M, 80), np.float32)
+    mel[:, :n_frames] = rng.standard_normal((B, n_frames, 80)) - 4.0
+    f0 = np.zeros((B, M), np.float32)
+    f0[:, :n_frames] = rng.random((B, n_frames))
+    en = np.zeros((B, M), np.float32)
+    en[:, :n_frames] = rng.random((B, n_frames))
+    spk = rng.standard_normal((B, 512)).astype(np.float32) / 22.6
+    return (src, np.full(B, n_ids), mel, f0, en, np.full(B, n_frames), spk, *controls)
+
+
+def _eager(bundle, arrays):
+    """The same inputs through the eager ``Synthesizer._forward`` (float
+    controls, as the live path passes them)."""
+    from styler_tpu_torch.core.export import _outputs
+
+    dev = bundle.device
+    t = [torch.from_numpy(np.asarray(a)).to(dev) for a in arrays[:7]]
+    t[0], t[1], t[5] = (x.long() for x in (t[0], t[1], t[5]))
+    out = bundle.synth._forward(*t, *(float(c) for c in arrays[7:]), bundle.mel_out)
+    return {k: v.cpu().numpy() for k, v in _outputs(*out).items()}
+
+
+def _assert_same(got, want):
+    for k, v in want.items():
+        assert got[k].shape == v.shape, k
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+
+
+def test_bundle_replay_equals_eager(cuda_bundle):
+    """A replay gives the eager forward's bits; the kernels' launch counts
+    rise at capture (A 36, B 2 per iSTFTNet forward), not at replay."""
+    key = (1, 32, 64)
+    arrays = _bundle_arrays(key, 0, 20, 50)
+    fused_resblock_stage.launches = lstm_recurrence.launches = 0
+    got = cuda_bundle.call(*key, *arrays)  # capture (after one eager forward), replay
+    assert (fused_resblock_stage.launches, lstm_recurrence.launches) == (72, 4)
+    _assert_same(got, _eager(cuda_bundle, arrays))
+    fused_resblock_stage.launches = lstm_recurrence.launches = 0
+    again = cuda_bundle.call(*key, *arrays)
+    assert (fused_resblock_stage.launches, lstm_recurrence.launches) == (0, 0)
+    _assert_same(again, got)
+
+
+def test_bundle_controls_are_read_at_replay(cuda_bundle):
+    """Captured at controls 1.0, replayed at d 1.3 and p 0.8 (and e 1.1):
+    eager at those values, and not the result at 1.0."""
+    key = (1, 32, 64)
+    cuda_bundle.call(*key, *_bundle_arrays(key, 1, 20, 50))
+    arrays = _bundle_arrays(key, 1, 20, 50, controls=(1.3, 0.8, 1.1))
+    got = cuda_bundle.call(*key, *arrays)
+    _assert_same(got, _eager(cuda_bundle, arrays))
+    at_one = _eager(cuda_bundle, _bundle_arrays(key, 1, 20, 50))
+    assert not np.array_equal(got["f0"], at_one["f0"])
+
+
+def test_bundle_alternating_entries(cuda_bundle):
+    """Entries replayed A, B, A in the shared pool: eager's result each time."""
+    a, b = (1, 32, 64), (2, 64, 64)
+    xa, xb = _bundle_arrays(a, 2, 25, 40), _bundle_arrays(b, 3, 50, 60)
+    for key, arrays in ((a, xa), (b, xb), (a, xa)):
+        _assert_same(cuda_bundle.call(*key, *arrays), _eager(cuda_bundle, arrays))
+
+
+def test_bundle_short_after_long_in_one_bucket(cuda_bundle):
+    """A short request after a long one in the same entry equals a fresh
+    eager short request: every input element, the padding included, is
+    written at each call."""
+    key = (1, 64, 64)
+    cuda_bundle.call(*key, *_bundle_arrays(key, 4, 60, 64))
+    short = _bundle_arrays(key, 5, 35, 20)
+    _assert_same(cuda_bundle.call(*key, *short), _eager(cuda_bundle, short))
+
+
+def test_bundle_synthesize_equals_live(cuda_bundle):
+    """``ServingBundle.synthesize`` on the card equals the live
+    ``Synthesizer.synthesize`` on the same synthesizer, bit for bit."""
+    from styler_tpu_torch.synthesis import extract_reference_features
+
+    synth = cuda_bundle.synth
+    rng = np.random.default_rng(6)
+    ref = extract_reference_features((rng.standard_normal(256 * 50) * 3000).astype(np.float32),
+                                     synth.config, synth.frontend)
+    spk = (rng.standard_normal(512) / 22.6).astype(np.float32)
+    live = synth.synthesize("Hello there.", ref, spk, d_control=1.2)
+    got = cuda_bundle.synthesize(synth.text_to_ids("Hello there."), ref.mel[: ref.mel_len],
+                                 ref.f0_norm[: ref.mel_len], ref.energy01[: ref.mel_len], spk,
+                                 d_control=1.2)
+    assert got["mel_len"] == live["mel_len"] and not got["truncated"]
+    for k in ("mel", "mel_noisy", "wav", "wav_noisy", "f0", "energy"):
+        np.testing.assert_array_equal(got[k], live[k], err_msg=k)
+
+
+def test_bundle_failed_capture_raises(cuda_bundle):
+    """A forward that reads the card back cannot be captured: the call
+    raises, with no eager fallback, and no graph is kept for the entry."""
+    from styler_tpu_torch.core.export import ServingBundle
+
+    bundle = ServingBundle(cuda_bundle.dir)
+    forward = bundle.synth._forward
+
+    def syncing(*a, **kw):
+        out = forward(*a, **kw)
+        float(out[1].sum())  # a host read: refused inside a capture
+        return out
+
+    bundle.synth._forward = syncing
+    key = (2, 32, 64)
+    with pytest.raises(RuntimeError):
+        bundle.call(*key, *_bundle_arrays(key, 7, 10, 30))
+    assert key not in bundle._graphs
+    torch.cuda.synchronize()

@@ -19,7 +19,7 @@ import pytest
 import torch
 from scipy.io import wavfile
 
-from styler_tpu_torch.cli import serve, synthesize
+from styler_tpu_torch.cli import export, serve, synthesize
 from styler_tpu_torch.cli.serve import CONTRACT, Server, warmup_batch_sizes
 from styler_tpu_torch.core.config import default_config
 from styler_tpu_torch.synthesis import load_synthesizer
@@ -330,7 +330,7 @@ def test_synthesize_cli_batch(ref_dir, tmp_path, monkeypatch, fake):
     (synthesize, ["--ref_name", "x", "--vocoder", "WaveGlow"], r"Queue 1 \[15\]"),
     (synthesize, ["--ref_name", "x", "--ckpt", "checkpoint_560000.pth.tar"], r"Queue 1 \[9\]"),
     (serve, ["--bf16"], r"Queue 1 \[9\]"),
-    (serve, ["--bundle", "bundle/"], r"Queue 1 \[11\]"),
+    (export, ["--out", "bundle/", "--vocoder", "MelGAN"], r"Queue 1 \[15\]"),
     (serve, ["--vocoder", "MelGAN"], r"Queue 1 \[15\]"),
 ])
 def test_unported_flags_raise(cli, argv, item):
