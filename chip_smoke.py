@@ -185,6 +185,43 @@ Phases, each printing one JSON line:
 13. train_card_vs_cpu — one step's loss components and every gradient leaf,
              without dropout, on the card against ``device="cpu"``.
 
+14. bf16 — (inside 6c's reference dir, on the same f32 synthesizer)
+             ``load_synthesizer`` with ``compute_dtype="bfloat16"``: one
+             request under ``Capture`` (kernels A and B held against their
+             plain versions, kernel B's gates and weights float32), the 3
+             requests of ``main`` (A 36 and B 2 each, nothing else), each
+             against the port's bf16 on the CPU and against the card's f32
+             (``hold_bf16_request``: log-durations, and where the rounded
+             durations agree f0, energy and mels, within twice the CPU
+             port's own bf16-vs-f32 distance plus half a bf16 step of the
+             scale; a duration may round differently only within bf16 noise
+             of the edge; waveforms by log-mel MAE < 0.1); one request
+             profiled in each dtype (``bf16_profile_bf16`` / ``_f32``: wall,
+             device busy, idle share, ``cudnn_conv_ms``); the 16-row batch in
+             each dtype (``bf16_batch_*``: wall, busy, audio s per wall s); one
+             bundle entry at B = 1 in each dtype (``bf16_bundle``: the
+             compute dtype recorded in the manifest, launches at capture,
+             none at replay, the bf16 replay bit-equal to bf16 eager,
+             request walls in turns).
+15. reference_ckpt — (after 10) a full-width reference
+             ``checkpoint_<step>.pth.tar`` written from the committed
+             asset's trees (``reference_state_dict``, the importer's layout
+             inverted, with ``module.`` and what the importer must ignore):
+             loaded with no vocoder named it must serve HiFi-GAN, its request
+             bit-equal to the asset's with ``vocoder_arch="HiFi-GAN"``, kernel
+             A 72 launches; with ``STYLER_TPU_INT8_VOCODER=1`` the int8 kernel
+             72 and its prep pass 4; load ms.
+16. random — ``ckpt_path="random"`` twice: the same weights; a finite
+             request (A 36, B 2).
+17. train_serve — (after 12) ``save_checkpoint`` of the trained state,
+             then ``load_synthesizer`` on its ``step_<N>.pt`` and on the
+             checkpoint directory: each request bit-equal to a Synthesizer
+             built from ``to_flax_tree(state.model)``; the exporter
+             (``python -m styler_tpu_torch.tools.export_acoustic_asset``) on
+             the directory: its ``.npz`` loads to the float16-rounded trees
+             bit for bit and serves a finite request; save and export
+             seconds, the file's size.
+
 Then the script's total seconds (``total``), the ``{"kernels": [...]}`` line,
 the nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 that line is printed. Imports nothing of JAX or of the JAX package.
@@ -234,8 +271,12 @@ BATCH_SENTENCES = (
 )
 
 
+#: the script's start, for the seconds each phase line carries (``t_s``)
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    print(json.dumps({"phase": phase, **kw, "t_s": time.perf_counter() - T_START}), flush=True)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2024,11 +2065,18 @@ def profile_rows(torch, prof):
     return rows, host
 
 
+#: cuDNN's convolution kernels among a profile's device rows (kernel names)
+CONV_KERNELS = re.compile(r"conv|fprop|dgrad|wgrad|implicit_gemm", re.IGNORECASE)
+
+
 def emit_profile(phase, rows, host, wall_ms, **kw):
     busy_ms = sum(r[2] for r in rows)
+    conv = [r for r in rows if CONV_KERNELS.search(r[0]) and "lstm_" not in r[0] and "resblock_" not in r[0]]
     emit(phase, wall_ms=wall_ms,
          device_busy_ms=busy_ms if rows else "not measured",
          device_idle_share=(1 - busy_ms / wall_ms) if rows else "not measured",
+         cudnn_conv_ms=sum(r[2] for r in conv) if rows else "not measured",
+         cudnn_conv_kernels=sum(r[1] for r in conv),
          host_op_ms=sum(r[2] for r in host), host_ops=sum(r[1] for r in host),
          port_kernels=[{"kernel": k[:90], "count": n, "ms": ms} for k, n, ms in rows
                        if "lstm_" in k or "resblock_" in k],
@@ -2230,6 +2278,525 @@ def phase_profile(torch, synth, sentence, ref, spk, phase="profile") -> None:
     emit_profile(phase, rows, host, wall_ms, sentence=sentence, text_to_ids_ms=text_ms)
 
 
+# ---------------------------------------------------------------------------
+# 14-17. every acoustic weight form the card reads, and the bf16 acoustic
+# model
+
+
+def reference_state_dict(np, torch, params, stats):
+    """The reference's DataParallel STYLER state dict (``checkpoint_<step>
+    .pth.tar``'s ``["model"]``) of flax-layout trees: the layout transforms
+    of ``core/import_torch.py:import_styler_state`` inverted (Linear kernel
+    [in, out] -> weight [out, in], Conv1d kernel [k, in, out] -> weight
+    [out, in, k], norms' scale -> weight, LSTM leaves -> torch's
+    ``weight_ih_l0_reverse`` names), plus a ``pitch_norm_linear`` and
+    BatchNorm step counters, which the importer must ignore."""
+    sd = {}
+
+    def lin(dst, t):
+        sd[f"{dst}.weight"], sd[f"{dst}.bias"] = t["kernel"].T, t["bias"]
+
+    def conv(dst, t):
+        sd[f"{dst}.weight"], sd[f"{dst}.bias"] = t["kernel"].transpose(2, 1, 0), t["bias"]
+
+    def norm(dst, t):
+        sd[f"{dst}.weight"], sd[f"{dst}.bias"] = t["scale"], t["bias"]
+
+    def fft(dst, t):
+        for n in ("w_qs", "w_ks", "w_vs", "fc"):
+            lin(f"{dst}.slf_attn.{n}", t["slf_attn"][n])
+        norm(f"{dst}.slf_attn.layer_norm", t["slf_attn"]["layer_norm"])
+        conv(f"{dst}.pos_ffn.w_1", t["pos_ffn"]["w_1"])
+        conv(f"{dst}.pos_ffn.w_2", t["pos_ffn"]["w_2"])
+        norm(f"{dst}.pos_ffn.layer_norm", t["pos_ffn"]["layer_norm"])
+
+    sm, se = params["style_modeling"], "style_modeling.style_encoder"
+    ae = f"{se}.audio_encoder"
+    sd[f"{se}.text_encoder.src_word_emb.weight"] = sm["text_encoder"]["src_word_emb"]
+    for k, v in sm["text_encoder"].items():
+        if k.startswith("layer_"):
+            fft(f"{se}.text_encoder.layer_stack.{k[6:]}", v)
+    for n, b in enumerate("dper", start=1):
+        for i in range(3):
+            conv(f"{ae}.convolutions_{n}.{i}.0.conv", sm["audio_encoder"][f"convs_{b}"][f"conv_{i}"])
+            norm(f"{ae}.convolutions_{n}.{i}.1", sm["audio_encoder"][f"convs_{b}"][f"gn_{i}"])
+        for k, v in sm["audio_encoder"][f"lstm_{b}"].items():
+            layer, d, w, kind = re.fullmatch(r"l(\d)_(fwd|bwd)_([wb])_(ih|hh)", k).groups()
+            name = f"{'weight' if w == 'w' else 'bias'}_{kind}_l{layer}{'_reverse' if d == 'bwd' else ''}"
+            sd[f"{ae}.lstm_{n}.{name}"] = v
+    for n in ("text_linear_down", "speaker_linear_p", "speaker_linear"):
+        lin(f"{se}.{n}.0", sm[n])
+    lin("style_modeling.text_linear_up.0", sm["text_linear_up"])
+    for f in "dpe":
+        c, dst = sm[f"augmentation_classifier_{f}"], f"style_modeling.augmentation_classifier_{f}.classifier"
+        lin(f"{dst}.d_fc1", c["d_fc1"])
+        norm(f"{dst}.d_bn1", c["d_bn1"])
+        lin(f"{dst}.d_fc2", c["d_fc2"])
+    for f in ("duration", "pitch", "energy", "residual"):
+        lin(f"style_modeling.{f}_linear.0", sm[f"{f}_linear"]["fc1"])
+        lin(f"style_modeling.{f}_linear.2", sm[f"{f}_linear"]["fc2"])
+    for f in ("duration", "pitch", "energy"):
+        p, dst = sm[f"{f}_predictor"], f"style_modeling.{f}_predictor"
+        for i in (1, 2):
+            conv(f"{dst}.conv_layer.conv1d_{i}.conv", p[f"conv1d_{i}"])
+            norm(f"{dst}.conv_layer.layer_norm_{i}", p[f"layer_norm_{i}"])
+        lin(f"{dst}.linear_layer", p["linear_layer"])
+    for f in ("pitch", "energy"):
+        sd[f"style_modeling.{f}_embedding.weight"] = sm[f"{f}_embedding"]["embedding"]
+    for k, v in params["decoder"].items():
+        fft(f"decoder.layer_stack.{k[6:]}", v)
+    lin("mel_linear", params["mel_linear"])
+    for i in range(5):
+        conv(f"postnet.convolutions.{i}.0.conv", params["postnet"][f"conv_{i}"])
+        norm(f"postnet.convolutions.{i}.1", params["postnet"][f"bn_{i}"])
+        sd[f"postnet.convolutions.{i}.1.running_mean"] = stats["postnet"][f"bn_{i}"]["mean"]
+        sd[f"postnet.convolutions.{i}.1.running_var"] = stats["postnet"][f"bn_{i}"]["var"]
+        sd[f"postnet.convolutions.{i}.1.num_batches_tracked"] = np.array(560000)
+    sd["style_modeling.pitch_norm_linear.0.weight"] = np.ones((256, 128), np.float32)
+    sd["style_modeling.pitch_norm_linear.0.bias"] = np.ones(256, np.float32)
+    return {f"module.{k}": torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+REQUEST_KEYS = ("mel", "mel_noisy", "wav", "wav_noisy", "f0", "energy", "duration")
+REQUEST_KEYS_ACOUSTIC = ("log_d", "f0", "energy", "mel", "mel_noisy")
+
+
+def same_request(np, what, got, want) -> None:
+    """Two results of one request, bit for bit."""
+    check(got["mel_len"] == want["mel_len"] > 0, f"{what}: mel_len {got['mel_len']} vs {want['mel_len']}")
+    differs = {k: float(np.abs(got[k] - want[k]).max()) for k in REQUEST_KEYS
+               if not np.array_equal(got[k], want[k])}
+    check(not differs, f"{what}: not bit-equal, max |diff| {differs}")
+
+
+def same_trees(np, what, got, want) -> int:
+    """Two flax-style trees, leaf for leaf, bit for bit. Returns the leaf count."""
+    from styler_tpu_torch.core.checkpoint import flatten_tree
+
+    got, want = flatten_tree(got), flatten_tree(want)
+    check(set(got) == set(want), f"{what}: leaf names differ")
+    bad = [k for k in want if not np.array_equal(got[k], want[k])]
+    check(not bad, f"{what}: leaves differ: {bad[:4]}")
+    return len(want)
+
+
+def f16_tree(np, tree):
+    from styler_tpu_torch.core.checkpoint import flatten_tree, unflatten_tree
+
+    return unflatten_tree({k: v.astype(np.float16).astype(np.float32) for k, v in flatten_tree(tree).items()})
+
+
+def phase_train_serve(torch, np, trainer, cfg, ref, spk, smi, workdir) -> None:
+    """The train -> serve round trip on the card, after ``phase_train``'s
+    steps: ``save_checkpoint``, then the trainer's ``step_<N>.pt`` and its
+    checkpoint directory (the latest step)
+    through ``load_synthesizer``, one request each bit-equal to a
+    Synthesizer built from ``to_flax_tree(state.model)``; the exporter's
+    ``.npz`` (``python -m styler_tpu_torch.tools.export_acoustic_asset``)
+    loads to the float16-rounded trees bit for bit (the Synthesizer of
+    those trees) and serves a finite request. Kernels A and B counted on
+    each request."""
+    import contextlib
+    import io
+
+    from styler_tpu_torch.core.checkpoint import default_vocoder_asset, load_vocoder_npz
+    from styler_tpu_torch.core.convert import to_flax_tree
+    from styler_tpu_torch.synthesis import Synthesizer, load_synthesizer
+    from styler_tpu_torch.tools import export_acoustic_asset
+
+    from styler_tpu_torch.train.trainer import save_checkpoint
+
+    step = trainer.state.step
+    ckpt_dir = trainer.ckpt_dir
+    t0 = time.perf_counter()
+    step_file = save_checkpoint(ckpt_dir, trainer.state)
+    save_s = time.perf_counter() - t0
+    check(step_file == os.path.join(ckpt_dir, f"step_{step}.pt"), f"train_serve: wrote {step_file}")
+    params, stats = to_flax_tree(trainer.state.model)
+    voc = load_vocoder_npz(default_vocoder_asset("iSTFTNet"))
+    cfg_i = cfg.replace(vocoder="iSTFTNet")
+    n = Launches()
+    want = Synthesizer(cfg_i, params, stats, voc).synthesize(SENTENCES[0], ref, spk)
+    rec = {}
+    for form, path in (("step_file", step_file), ("directory", ckpt_dir)):
+        t0 = time.perf_counter()
+        synth = load_synthesizer(cfg, ckpt_path=path)
+        load_ms = (time.perf_counter() - t0) * 1e3
+        check(synth.device.type == "cuda" and synth.config.vocoder == "iSTFTNet", f"train_serve {form}")
+        n.reset()
+        got = synth.synthesize(SENTENCES[0], ref, spk)
+        torch.cuda.synchronize()
+        rec[form] = {"load_ms": load_ms, "launches": n.check_serving(f"train_serve {form}", 36, 2),
+                     "bit_equal": True}
+        same_request(np, f"train_serve {form}", got, want)
+        del synth
+    out = os.path.join(workdir, "styler_gen.npz")
+    report = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(report):
+        check(export_acoustic_asset.main(["--ckpt", ckpt_dir, "--out", out]) == 0, "exporter failed")
+    export_s = time.perf_counter() - t0
+    synth = load_synthesizer(cfg, ckpt_path=out)
+    got_p, got_s = to_flax_tree(synth.model)
+    leaves = same_trees(np, "train_serve npz params", got_p, f16_tree(np, params))
+    same_trees(np, "train_serve npz stats", got_s, f16_tree(np, stats))
+    n.reset()
+    got = synth.synthesize(SENTENCES[0], ref, spk)
+    launches = n.check_serving("train_serve npz", 36, 2)
+    check(got["mel_len"] > 0 and all(bool(np.isfinite(got[k]).all()) for k in REQUEST_KEYS),
+          "train_serve npz: empty or non-finite request")
+    emit("train_serve", step=step, **rec, npz={"launches": launches, "bit_equal_to_f16_trees": True,
+                                               "leaves": leaves},
+         save_s=save_s, export_s=export_s, npz_bytes=os.path.getsize(out), export_report=report.getvalue().strip(),
+         card=smi)
+    del synth
+    torch.cuda.empty_cache()
+
+
+def phase_reference_ckpt(torch, np, cfg, ref, spk, smi, workdir) -> None:
+    """A reference ``checkpoint_<step>.pth.tar`` at full width, written
+    from the committed asset's trees (``reference_state_dict``), through
+    ``load_synthesizer`` with no vocoder named: the vocoder must be HiFi-GAN
+    (the published model's), its request bit-equal to the asset's with
+    ``vocoder_arch="HiFi-GAN"`` (the same f32 values either way), kernel A
+    72 launches a request; then with ``STYLER_TPU_INT8_VOCODER=1`` the
+    int8 kernel 72 and its prep pass 4, kernel A none."""
+    from styler_tpu_torch.core.checkpoint import default_acoustic_asset, load_acoustic_npz
+    from styler_tpu_torch.synthesis import load_synthesizer
+
+    params, stats = load_acoustic_npz(default_acoustic_asset())
+    path = os.path.join(workdir, "checkpoint_560000.pth.tar")
+    torch.save({"model": reference_state_dict(np, torch, params, stats), "optimizer": {}}, path)
+    t0 = time.perf_counter()
+    synth = load_synthesizer(cfg, ckpt_path=path)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    check(synth.config.vocoder == "HiFi-GAN" and not synth.generator.quantize,
+          f"reference_ckpt: vocoder {synth.config.vocoder}, not HiFi-GAN")
+    t0 = time.perf_counter()
+    asset = load_synthesizer(cfg, vocoder_arch="HiFi-GAN")
+    asset_load_ms = (time.perf_counter() - t0) * 1e3
+    synth.synthesize(SENTENCES[0], ref, spk)  # warm-up
+    n = Launches()
+    n.reset()
+    got = synth.synthesize(SENTENCES[0], ref, spk)
+    torch.cuda.synchronize()
+    launches = n.read()
+    check(launches["resblock_stage"] == 72 and launches["lstm_recurrence"] == 2
+          and launches["resblock_stage_int8"] == 0, f"reference_ckpt: launches {launches}")
+    same_request(np, "reference_ckpt vs asset", got, asset.synthesize(SENTENCES[0], ref, spk))
+    del synth, asset
+    os.environ["STYLER_TPU_INT8_VOCODER"] = "1"
+    try:
+        synth_q = load_synthesizer(cfg, ckpt_path=path)
+    finally:
+        del os.environ["STYLER_TPU_INT8_VOCODER"]
+    check(synth_q.generator.quantize, "reference_ckpt: STYLER_TPU_INT8_VOCODER=1 gave no int8 form")
+    n.reset()
+    q = synth_q.synthesize(SENTENCES[0], ref, spk)
+    torch.cuda.synchronize()
+    launches_q = n.read()
+    check(launches_q["resblock_stage_int8"] == 72 and launches_q["resblock_stage_int8_prep"] == 4
+          and launches_q["resblock_stage"] == 0, f"reference_ckpt int8: launches {launches_q}")
+    check(q["mel_len"] == got["mel_len"] and all(bool(np.isfinite(q[k]).all()) for k in REQUEST_KEYS),
+          "reference_ckpt int8: mel_len or non-finite output")
+    emit("reference_ckpt", file_bytes=os.path.getsize(path), load_ms=load_ms, asset_load_ms=asset_load_ms,
+         vocoder="HiFi-GAN", bit_equal_to_asset=True, mel_len=got["mel_len"], launches=launches,
+         int8_launches=launches_q, card=smi)
+    del synth_q
+    os.remove(path)
+    torch.cuda.empty_cache()
+
+
+def phase_random(torch, np, cfg, ref, spk, smi) -> None:
+    """``ckpt_path="random"``: two loads give the same weights (a seeded
+    CPU generator; its stream depends on the torch version), and one
+    forward through kernels A and B (A 36, B 2) is finite in every output,
+    padding included. Random predictors may round every duration to 0 (an
+    empty request), so the public ``synthesize`` is held to its shapes."""
+    from styler_tpu_torch.core.convert import to_flax_tree
+    from styler_tpu_torch.synthesis import load_synthesizer
+
+    t0 = time.perf_counter()
+    a = load_synthesizer(cfg, ckpt_path="random")
+    load_ms = (time.perf_counter() - t0) * 1e3
+    b = load_synthesizer(cfg, ckpt_path="random")
+    leaves = same_trees(np, "random", to_flax_tree(a.model)[0], to_flax_tree(b.model)[0])
+    del b
+    M = cfg.mel_buckets[-1]
+    rows = a._pack_rows([a.text_to_ids(SENTENCES[-1])], [ref], [spk])
+    n = Launches()
+    n.reset()
+    out, wav, wav_noisy = a._forward(*rows, 1.0, 1.0, 1.0, M)
+    torch.cuda.synchronize()
+    launches = n.check_serving("random", 36, 2)
+    outputs = {"mel_postnet": out.mel_postnet, "mel_postnet_noisy": out.mel_postnet_noisy,
+               "log_d": out.log_d_prediction, "f0": out.p_prediction, "energy": out.e_prediction,
+               "wav": wav, "wav_noisy": wav_noisy}
+    finite = {k: bool(torch.isfinite(v).all()) for k, v in outputs.items()}
+    check(all(finite.values()), f"random: non-finite outputs {finite}")
+    res = a.synthesize(SENTENCES[-1], ref, spk)
+    ml = res["mel_len"]
+    check(ml == int(out.mel_len[0]) and 0 <= ml <= M and res["wav"].shape == (ml * cfg.hop_length,)
+          and res["mel"].shape == (ml, cfg.n_mel_channels), f"random: mel_len {ml}, shapes")
+    emit("random", load_ms=load_ms, leaves_equal=leaves, vocoder=a.config.vocoder, mel_len=ml,
+         log_d_range=[float(out.log_d_prediction.min()), float(out.log_d_prediction.max())],
+         finite=finite, launches=launches, card=smi)
+    del a
+    torch.cuda.empty_cache()
+
+
+#: the floor of a bf16 bound on the card: two bfloat16 steps of the
+#: output's mean magnitude. The card's bf16-vs-f32 pitch prediction came
+#: out 5.4x the CPU's on one sentence and 1.2x on the others (both half a
+#: bfloat16 step of the scale or less), so one CPU realisation is too small
+#: a yardstick alone.
+BF16_FLOOR = 2.0 ** -7
+
+
+def hold_bf16(np, fails, what, port, other, own_b, own_f) -> dict:
+    """A bf16 result ``port`` against ``other`` (the port's bf16 on the
+    CPU, or the card's f32), held as ``tests/test_torch_bf16.py`` holds the
+    port to the JAX package: mean |port - other| within twice the CPU
+    port's own bf16-vs-f32 distance (``own_b`` vs ``own_f``, which that test
+    holds to the JAX package's) plus ``BF16_FLOOR`` of the output's mean
+    magnitude. A miss is appended to ``fails``."""
+    a, b, ob, of = (np.asarray(x, np.float64) for x in (port, other, own_b, own_f))
+    if a.shape != b.shape or ob.shape != of.shape:
+        fails.append(f"{what}: shapes {a.shape} / {b.shape} / {ob.shape} / {of.shape}")
+        return {"shapes": [list(a.shape), list(b.shape)]}
+    d, d_own = float(np.abs(a - b).mean()), float(np.abs(ob - of).mean())
+    bound = 2 * d_own + BF16_FLOOR * float(np.abs(of).mean())
+    if not (bool(np.isfinite(a).all()) and d <= bound):
+        fails.append(f"{what}: mean |diff| {d} > {bound} (2 x CPU bf16-vs-f32 {d_own} + floor)")
+    return {"mean_abs": d, "bound": bound, "cpu_bf16_vs_f32": d_own}
+
+
+def hold_bf16_request(np, bins, fails, what, got, other, cpu_b, cpu_f) -> dict:
+    """One bf16 request's acoustic outputs ``got`` (``acoustic``) on the
+    card against ``other`` (``hold_bf16``, misses appended to ``fails``):
+    the log-durations; every rounded duration equal, or both continuous
+    values within bf16 noise of the rounding edge between them (twice the
+    CPU pair's largest difference of exp(log_d) - 1, at least 2^-6 of the
+    value). Where no duration differs, f0 and energy; a frame whose f0 or
+    energy takes another embedding bin (``bin_flips``: bf16 noise against
+    bins a few Hz wide flips some) must differ by no more than twice the
+    CPU pair's largest bf16-vs-f32 difference of that value plus
+    ``BF16_FLOOR`` of its largest magnitude. Where no bin flips either, the
+    two mels; else their distances are reported, and the teacher-forced
+    forward holds the mel without the discrete steps."""
+    rec = {"phonemes": len(got["log_d"]),
+           "log_d": hold_bf16(np, fails, f"{what} log_d", got["log_d"], other["log_d"],
+                              cpu_b["log_d"], cpu_f["log_d"])}
+    raw_g, raw_o, raw_b, raw_f = (np.exp(x["log_d"]) - 1.0 for x in (got, other, cpu_b, cpu_f))
+    flips = np.nonzero(np.round(raw_g) != np.round(raw_o))[0]
+    own = 2 * float(np.abs(raw_b - raw_f).max())
+    for i in flips:
+        edge = np.floor(max(raw_g[i], raw_o[i])) + 0.5
+        noise = max(own, 4 * 2.0 ** -8 * max(abs(raw_o[i]), 1.0))
+        if not (abs(raw_g[i] - edge) <= noise and abs(raw_o[i] - edge) <= noise):
+            fails.append(f"{what}: phoneme {i} rounds to {np.round(raw_g[i])} vs {np.round(raw_o[i])} "
+                         f"away from an edge ({raw_g[i]} vs {raw_o[i]}, noise {noise})")
+    rec["duration_flips"] = int(len(flips))
+    own_flips = int((np.round(raw_b) != np.round(raw_f)).sum())
+    rec["cpu_bf16_vs_f32_duration_flips"] = own_flips
+    if len(flips) or own_flips or not (got["mel_len"] == other["mel_len"] == cpu_b["mel_len"] == cpu_f["mel_len"]):
+        return rec
+    for k in ("f0", "energy"):
+        rec[k] = hold_bf16(np, fails, f"{what} {k}", got[k], other[k], cpu_b[k], cpu_f[k])
+    flipped = bin_flips(np, bins, got, other)
+    for k in ("f0", "energy"):
+        frames = flipped.get(f"{k}_bin_frames", [])
+        noise = (2 * float(np.abs(cpu_b[k] - cpu_f[k]).max()) + BF16_FLOOR * float(np.abs(cpu_f[k]).max()))
+        gap = float(np.abs(got[k][frames] - other[k][frames]).max()) if frames else 0.0
+        if gap > noise:
+            fails.append(f"{what}: {k} takes another bin {gap} away, beyond bf16 noise {noise}")
+        rec[f"{k}_bin_flips"] = len(frames)
+    for k in ("mel", "mel_noisy"):
+        if flipped:
+            rec[k] = {"mean_abs": float(np.abs(got[k] - other[k]).mean()), "held": False}
+        else:
+            rec[k] = hold_bf16(np, fails, f"{what} {k}", got[k], other[k], cpu_b[k], cpu_f[k])
+    return rec
+
+
+def acoustic(torch, synth, sentence, ref, spk, targets=None) -> dict:
+    """``synth.model``'s eval forward on one request, free, or teacher-forced
+    with ``targets`` (rounded durations over the phonemes, f0 and energy
+    over the frames, numpy) so that no rounding edge or embedding bin can
+    move: log-durations over the phonemes, f0, energy and the two mels over
+    the output frames, as float64 numpy, and the output length."""
+    import numpy as np
+
+    src_seq, src_len, mel, f0, en, mel_len, spk_t = synth._pack_rows(
+        [synth.text_to_ids(sentence)], [ref], [spk])
+    L, M, n = src_seq.shape[1], mel.shape[1], int(src_len[0])
+    kw = {}
+    if targets is not None:
+        d, p, e = targets
+        dt, pt, et = np.zeros((1, L), np.int64), np.zeros((1, M), np.float32), np.zeros((1, M), np.float32)
+        dt[0, :n] = d[:n]
+        pt[0, : min(len(p), M)], et[0, : min(len(e), M)] = p[:M], e[:M]
+        kw = {k: torch.from_numpy(v).to(synth.device) for k, v in
+              (("d_target", dt), ("p_target", pt), ("e_target", et))}
+    M_out = M if targets is not None else synth.config.mel_buckets[-1]
+    with torch.no_grad():
+        out = synth.model(src_seq, mel, mel, f0, en, src_len, mel_len, M_out, spk_t, **kw)
+    ml = int(out.mel_len[0])
+    cut = {"log_d": ("log_d_prediction", n), "f0": ("p_prediction", ml), "energy": ("e_prediction", ml),
+           "mel": ("mel_postnet", ml), "mel_noisy": ("mel_postnet_noisy", ml)}
+    res = {k: getattr(out, name)[0, :m].double().cpu().numpy() for k, (name, m) in cut.items()}
+    res["mel_len"] = ml
+    return res
+
+
+def profile_one(torch, fn):
+    """(device kernel rows, host rows, wall ms) of ``fn()`` under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return (*profile_rows(torch, prof), wall_ms)
+
+
+def phase_bf16(torch, np, synth, cfg, ref, ref2, spk, spk2, smi, workdir) -> None:
+    """The bf16 acoustic model (``compute_dtype="bfloat16"``) on the card,
+    beside the f32 one (``synth``) in the same call:
+
+    - one untimed request under ``Capture``: kernels A and B held against
+      their plain versions, kernel B's gates and weights float32;
+    - ``run_requests``' 3 sentences (A 36, B 2 a request, nothing else),
+      each against the port's bf16 on the CPU and against the card's f32
+      (``hold_bf16_request``);
+    - one request profiled in bf16 and in f32: wall, device busy, idle
+      share, cuDNN convolution ms;
+    - a 16-row ``synthesize_batch`` in each dtype: wall, busy, audio s per
+      wall s;
+    - one bundle entry at B = 1 in each dtype (captured CUDA graph): the
+      bf16 replay bit-equal to bf16 eager; request walls in turns."""
+    from styler_tpu_torch.core.config import bucket_for
+    from styler_tpu_torch.core.export import BundleSynthesizer, save_serving_bundle
+    from styler_tpu_torch.synthesis import load_synthesizer
+
+    cfg_b = cfg.replace(compute_dtype="bfloat16")
+    t0 = time.perf_counter()
+    sb = load_synthesizer(cfg_b)
+    load_s = time.perf_counter() - t0
+    check(sb.model.decoder.layer_0.slf_attn.w_qs.compute_dtype == torch.bfloat16, "bf16: not the bf16 model")
+    with Capture(sb) as cap:
+        sb.synthesize(SENTENCES[-1], ref, spk)
+        torch.cuda.synchronize()
+    held = hold_kernels(torch, "bf16", cap)
+    gate_dtypes = sorted({f"{a[0].dtype}/{a[1].dtype}" for a, _, _ in cap.calls["lstm_recurrence"]})
+    check(gate_dtypes == ["torch.float32/torch.float32"], f"bf16: kernel B's operands {gate_dtypes}")
+    del cap
+    outs_b, launches = run_requests(torch, sb, ref, spk, cfg, "bf16_main", smi)
+    check(launches["resblock_stage"] == 36 * len(SENTENCES) and launches["lstm_recurrence"] == 2 * len(SENTENCES)
+          and launches["resblock_stage_int8"] == launches["lstm_backward"] == 0
+          and launches["lstm_recurrence_training"] == 0, f"bf16: launches {launches}")
+    t0 = time.perf_counter()
+    cpu_b, cpu_f = load_synthesizer(cfg_b, device="cpu"), load_synthesizer(cfg, device="cpu")
+    held_requests, fails = [], []
+    sm = sb.model.style_modeling
+    bins = (sm.pitch_bins.cpu().numpy(), sm.energy_bins.cpu().numpy())
+    pairs = (("card_vs_cpu", "cpu_b"), ("bf16_vs_f32", "card_f"))
+    models = (("card_b", sb), ("card_f", synth), ("cpu_b", cpu_b), ("cpu_f", cpu_f))
+    for s, g in zip(SENTENCES, outs_b):
+        # the acoustic model alone (the vocoder is the same bf16 one in
+        # both modes): free, then teacher-forced with the CPU f32 request's
+        # rounded durations, f0 and energy, which holds the mel with no
+        # discrete step in the way
+        free = {name: acoustic(torch, s_, s, ref, spk) for name, s_ in models}
+        check(free["card_b"]["mel_len"] == g["mel_len"]
+              and np.array_equal(free["card_b"]["mel"], g["mel"].astype(np.float64)),
+              f"bf16 '{s[:12]}': the acoustic forward is not synthesize()'s")
+        cf = free["cpu_f"]
+        targets = (np.clip(np.round(np.exp(cf["log_d"]) - 1.0), 0, None).astype(np.int64), cf["f0"], cf["energy"])
+        tf = {name: acoustic(torch, s_, s, ref, spk, targets) for name, s_ in models}
+        f = synth.synthesize(s, ref, spk)
+        rec = {"sentence": s[:24], "mel_len": g["mel_len"],
+               "wav_log_mel_mae_bf16_vs_f32": [
+                   float(np.abs(sb.frontend(g[k])[0] - sb.frontend(f[k])[0]).mean()) if g["mel_len"] == f["mel_len"]
+                   else None for k in ("wav", "wav_noisy")]}
+        for pair, other in pairs:
+            rec[pair] = hold_bf16_request(np, bins, fails, f"bf16 {pair} '{s[:12]}'", free["card_b"],
+                                          free[other], free["cpu_b"], free["cpu_f"])
+        rec["teacher_forced"] = {
+            pair: {k: hold_bf16(np, fails, f"bf16 teacher-forced {pair} '{s[:12]}' {k}", tf["card_b"][k],
+                                tf[other][k], tf["cpu_b"][k], tf["cpu_f"][k]) for k in REQUEST_KEYS_ACOUSTIC}
+            for pair, other in pairs}
+        # bf16 is really taken on the card: its mel is not the f32 one
+        if not rec["teacher_forced"]["bf16_vs_f32"]["mel"]["mean_abs"] > 0:
+            fails.append(f"bf16 '{s[:12]}': the card's bf16 mel equals its f32 mel")
+        held_requests.append(rec)
+    cpu_s = time.perf_counter() - t0
+    del cpu_b, cpu_f
+    emit("bf16", load_s=load_s, cpu_compare_s=cpu_s, kernels_held=held, kernel_b_operands=gate_dtypes,
+         launches=launches, requests=held_requests, failures=fails, card=smi)
+    check(not fails, "bf16: " + "; ".join(fails))
+
+    prof = {}
+    for name, s_ in (("bf16", sb), ("f32", synth)):
+        s_.synthesize(SENTENCES[-1], ref, spk)
+        rows, host, wall_ms = profile_one(torch, lambda: s_.synthesize(SENTENCES[-1], ref, spk))
+        prof[name] = rows
+        emit_profile(f"bf16_profile_{name}", rows, host, wall_ms, sentence=SENTENCES[-1], card=smi)
+
+    rows = [(s, (ref, ref2)[j], (spk, spk2)[j]) for s in BATCH_SENTENCES for j in (0, 1)]
+    sentences, refs, spks = (list(c) for c in zip(*rows))
+    for name, s_ in (("bf16", sb), ("f32", synth)):
+        s_.synthesize_batch(sentences, refs, spks)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = s_.synthesize_batch(sentences, refs, spks)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        audio_s = sum(r["mel_len"] for r in res) * cfg.hop_length / cfg.sampling_rate
+        check(all(bool(np.isfinite(r["wav"]).all()) for r in res), f"bf16 batch ({name}): non-finite")
+        prow, phost, pwall = profile_one(torch, lambda: s_.synthesize_batch(sentences, refs, spks))
+        emit_profile(f"bf16_batch_{name}", prow, phost, pwall, batch_rows=len(res), unprofiled_wall_ms=wall_ms,
+                     audio_s=audio_s, audio_s_per_wall_s=audio_s / (wall_ms / 1e3), card=smi)
+
+    ids = sb.text_to_ids(SENTENCES[-1])
+    L = bucket_for(len(ids), cfg.src_buckets)
+    M_in = bucket_for(ref.mel_len, cfg.mel_buckets)
+    bundles, walls = {}, {"bf16": [], "f32": []}
+    n = Launches()
+    for name, s_ in (("bf16", sb), ("f32", synth)):
+        out = os.path.join(workdir, f"bundle_dtype_{name}")
+        manifest = save_serving_bundle(s_, out, src_buckets=(L,), mel_buckets=sorted({M_in, cfg.mel_buckets[-1]}))
+        check(manifest["config"]["compute_dtype"] == s_.config.compute_dtype, f"bundle {name}: dtype not recorded")
+        bundles[name] = BundleSynthesizer(out, cfg)
+        check(bundles[name].bundle.config.compute_dtype == s_.config.compute_dtype, f"bundle {name}: dtype")
+        n.reset()
+        bundles[name].synthesize(SENTENCES[-1], ref, spk)  # the capture
+        at_capture = n.read()
+        check(at_capture["resblock_stage"] == 72 and at_capture["lstm_recurrence"] == 4,
+              f"bundle {name}: launches at capture {at_capture}")
+    n.reset()
+    got = bundles["bf16"].synthesize(SENTENCES[-1], ref, spk)
+    check(sum(n.read().values()) == 0, "bf16 bundle: a kernel launched at replay")
+    want = sb.synthesize(SENTENCES[-1], ref, spk)
+    check(got["mel_len"] == want["mel_len"], "bf16 bundle: mel_len")
+    differs = [k for k in ("mel", "mel_noisy", "wav", "wav_noisy", "f0", "energy")
+               if not np.array_equal(got[k], want[k])]
+    check(not differs, f"bf16 bundle: replay not bit-equal to eager in {differs}")
+    for _ in range(4):
+        for name in ("bf16", "f32", "f32", "bf16"):
+            t0 = time.perf_counter()
+            bundles[name].synthesize(SENTENCES[-1], ref, spk)
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    emit("bf16_bundle", entry=[1, L, M_in], replay_bit_equal_to_eager=True,
+         request_wall_ms=walls, mean_wall_ms={k: sum(v) / len(v) for k, v in walls.items()}, card=smi)
+    for name in bundles:
+        shutil.rmtree(os.path.join(workdir, f"bundle_dtype_{name}"), ignore_errors=True)
+    del bundles, sb
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -2323,6 +2890,9 @@ def main() -> int:
         bs, bundle_dir = phase_bundle(torch, synth, cfg, ref, spk, smi, refroot)
         phase_serve_bundle(torch, np, synth, bs, bundle_dir, cfg_ref, smi, refroot)
         del bs
+        torch.cuda.empty_cache()
+        # 14. the bf16 acoustic model beside the f32 one
+        phase_bf16(torch, np, synth, cfg, ref, ref2, spk, spk2, smi, refroot)
     finally:
         shutil.rmtree(refroot, ignore_errors=True)
     del synth
@@ -2331,11 +2901,22 @@ def main() -> int:
     # 7-10. the HiFi-GAN serving path, exact and int8
     rec_h, rec_q, launches_h, launches_q = phase_hifigan(torch, cfg, mel2b, ref, spk, smi)
 
+    # 15-16. a reference checkpoint_<step>.pth.tar (HiFi-GAN kept) and
+    # "random" acoustic weights
+    formdir = tempfile.mkdtemp(prefix="smoke-forms-", dir=os.path.join(ROOT, "styler_tpu_torch", "_build"))
+    try:
+        phase_reference_ckpt(torch, np, cfg, ref, spk, smi, formdir)
+    finally:
+        shutil.rmtree(formdir, ignore_errors=True)
+    phase_random(torch, np, cfg, ref, spk, smi)
+
     # 11-13. the training main path
     workdir = tempfile.mkdtemp(prefix="smoke-train-", dir=os.path.join(ROOT, "styler_tpu_torch", "_build"))
     try:
         trainer, train_launches = phase_train(torch, cfg, smi, workdir)
         phase_train_profile(torch, trainer)
+        # 17. the train -> serve round trip: step_<N>.pt, its directory, the exporter
+        phase_train_serve(torch, np, trainer, cfg, ref, spk, smi, workdir)
         del trainer
     finally:
         shutil.rmtree(workdir, ignore_errors=True)

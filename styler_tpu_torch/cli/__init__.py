@@ -17,12 +17,14 @@ from __future__ import annotations
 
 import argparse
 
+CKPT_HELP = ("acoustic weights: a .npz asset (default: the committed trained asset), the "
+             "trainer's step_<N>.pt or its checkpoint dir (latest step), a reference "
+             "checkpoint_<step>.pth.tar, or 'random'; an orbax dir raises")
+
 
 def add_model_flags(parser: argparse.ArgumentParser) -> None:
     """The weight, reference, bucket and device flags of both entry points."""
-    parser.add_argument("--ckpt", type=str, default=None,
-                        help="acoustic weights: a .npz asset (default: the committed "
-                             "trained asset); a reference .pth.tar or an orbax dir raises")
+    parser.add_argument("--ckpt", type=str, default=None, help=CKPT_HELP)
     parser.add_argument("--vocoder_ckpt", type=str, default=None,
                         help=".npz asset or reference generator_universal.pth.tar")
     parser.add_argument("--ref_audio_dir", type=str, default=None)
@@ -32,7 +34,9 @@ def add_model_flags(parser: argparse.ArgumentParser) -> None:
                         choices=["HiFi-GAN", "MelGAN", "WaveGlow", "iSTFTNet"],
                         help="vocoder family; MelGAN and WaveGlow raise")
     parser.add_argument("--bf16", action="store_true",
-                        help="bfloat16 acoustic model: raises, not ported yet")
+                        help="mixed-precision acoustic model (bfloat16 convs and matmuls at "
+                             "the JAX package's dtype= sites; norms, LSTMs and the mel "
+                             "projection float32)")
     parser.add_argument("--src_buckets", type=int, nargs="+", default=None,
                         help="override phoneme-axis shape buckets")
     parser.add_argument("--mel_buckets", type=int, nargs="+", default=None,
@@ -42,23 +46,21 @@ def add_model_flags(parser: argparse.ArgumentParser) -> None:
 
 
 def refuse_unported(args: argparse.Namespace) -> None:
-    """Raise ``NotImplementedError`` naming its ROADMAP item for a flag the
-    port does not carry out yet (``--ckpt`` forms: ``load_synthesizer``)."""
-    if getattr(args, "bf16", False):
-        raise NotImplementedError(
-            "--bf16: a bfloat16 acoustic model is a later slice of the port "
-            "(ROADMAP.md, Queue 1 [9])")
+    """Raise ``NotImplementedError`` naming its ROADMAP item for a vocoder
+    the port does not carry yet (``--ckpt`` forms: ``load_synthesizer``)."""
     if args.vocoder in ("MelGAN", "WaveGlow"):
         raise NotImplementedError(
             f"--vocoder {args.vocoder}: a later slice of the port (ROADMAP.md, Queue 1 [15])")
 
 
 def config_from_args(args: argparse.Namespace):
-    """``default_config()`` with the flags' version, reference dirs and
-    bucket overrides."""
+    """``default_config()`` with the flags' version, ``--bf16``, reference
+    dirs and bucket overrides."""
     from styler_tpu_torch.core.config import default_config
 
     cfg = default_config().replace(version=args.version)
+    if args.bf16:
+        cfg = cfg.replace(compute_dtype="bfloat16")
     if args.ref_audio_dir:
         cfg = cfg.replace(ref_audio_dir=args.ref_audio_dir)
     if args.ref_tg_dir:

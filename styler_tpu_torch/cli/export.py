@@ -23,15 +23,13 @@ import os
 import sys
 import time
 
-from styler_tpu_torch.cli import refuse_unported
+from styler_tpu_torch.cli import CKPT_HELP, refuse_unported
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(prog="python -m styler_tpu_torch.cli.export",
                                      description="Export a serving bundle.")
-    parser.add_argument("--ckpt", type=str, default=None,
-                        help="acoustic weights: a .npz asset (default: the committed trained "
-                             "asset); a reference .pth.tar or an orbax dir raises")
+    parser.add_argument("--ckpt", type=str, default=None, help=CKPT_HELP)
     parser.add_argument("--vocoder_ckpt", type=str, default=None,
                         help=".npz asset or reference generator_universal.pth.tar")
     parser.add_argument("--out", type=str, required=True)

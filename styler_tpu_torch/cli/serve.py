@@ -33,7 +33,8 @@ exits after replying. EOF on stdin also exits.
 
 Usage:
   python -m styler_tpu_torch.cli.serve --ref_audio_dir refs/ \\
-      --ref_tg_dir refs/ [--outdir wavs/] [--warmup] [--device cpu]
+      --ref_tg_dir refs/ [--ckpt step_N.pt] [--bf16] [--outdir wavs/] [--warmup] \\
+      [--device cpu]
 
 ``--bundle DIR`` serves an exported bundle (``python -m
 styler_tpu_torch.cli.export``) through ``core/export.py:BundleSynthesizer``:
@@ -43,7 +44,10 @@ captured at the entry's first request, or all before serving with
 (``truncated`` in a batch reply), not chunked.
 
 ``Server.handle`` answers one request; ``main`` parses the flags and runs
-the stdin loop. ``--bf16`` raises ``NotImplementedError``.
+the stdin loop. ``--bf16`` runs the acoustic model in bfloat16 mixed
+precision, as the JAX package's ``--bf16`` does; a bundle of the port keeps the
+compute dtype it was exported with, a bundle of the JAX package takes the
+flag's.
 """
 
 from __future__ import annotations

@@ -5,13 +5,17 @@
 
 Flags of ``cli/synthesize.py``: --ckpt, --ref_name, --speaker_id,
 --noisy_input, --inspection, --cont --r1 --r2, the three control knobs,
---version, --sentence, --outdir, --batch, the bucket overrides, --vocoder;
-plus --device. Writes per sentence the clean and the ``_noisy`` wav and
+--version, --sentence, --outdir, --batch, the bucket overrides, --vocoder,
+--bf16; plus --device. Writes per sentence the clean and the ``_noisy`` wav and
 the ``_mel.npy`` under the JAX CLI's file names; ``--inspection`` one wav
 per ablation row; ``--cont`` the two references' wav copies and each
 combination's wav and mel npy. The JAX CLI's PNG overlays are not written
-(ROADMAP.md, Queue 1 [12]). ``--bf16``, ``--vocoder MelGAN|WaveGlow`` and
-a ``--ckpt`` that is not a ``.npz`` asset raise ``NotImplementedError``.
+(ROADMAP.md, Queue 1 [12]). ``--ckpt`` takes every acoustic form of
+``synthesis.py:load_synthesizer`` (a ``.npz`` asset, the trainer's
+``step_<N>.pt`` or its directory, a reference ``checkpoint_<step>.pth.tar``,
+``random``); ``--bf16`` runs the acoustic model in bfloat16 mixed
+precision. ``--vocoder MelGAN|WaveGlow`` and an orbax ``--ckpt`` directory
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations

@@ -8,7 +8,10 @@ This is also where the port sets its float32 matmul precision. The
 reference runs the acoustic model's precision-critical products (the mel
 calibrator, ``ops/regulate.py``, and the LSTMs, ``ops/recurrent.py``) at
 ``Precision.HIGHEST``, i.e. true f32, so TF32 is switched off for both
-cuBLAS matmuls and cuDNN convolutions. The switches are process-wide.
+cuBLAS matmuls and cuDNN convolutions. The bfloat16 acoustic model's
+products accumulate in float32 as XLA's do, so cuBLAS may not reduce a
+bfloat16 product's partial sums in reduced precision either. The switches
+are process-wide.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             )
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev

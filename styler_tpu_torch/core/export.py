@@ -5,7 +5,8 @@ The JAX package serialises one StableHLO program per (batch, src_bucket,
 mel_bucket) triple, so a serving process runs synthesis with no
 model-building Python. A CUDA graph cannot be serialised: a bundle of the
 port holds no program file, but what rebuilds the modules (the port's
-``Config`` as JSON and the vocoder form, bf16 or int8) beside the weights
+``Config`` as JSON, whose ``compute_dtype`` makes a bundle of a bfloat16
+acoustic model replay bfloat16, and the vocoder form, bf16 or int8) beside the weights
 in the JAX package's flat layout. The port reads the JAX package's bundles
 too (their ``.jaxexp`` files are ignored and the caller's config is
 required, as for the JAX ``BundleSynthesizer``).

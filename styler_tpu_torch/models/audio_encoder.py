@@ -17,6 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from styler_tpu_torch.models.transformer import Conv1d
 from styler_tpu_torch.ops.recurrent import fused_bilstm_branches
 from styler_tpu_torch.ops.regulate import mel_calibrate
 
@@ -53,33 +54,36 @@ class BiLSTM(nn.Module):
 
 
 class ConvBranch(nn.Module):
-    """3x [Conv1d k5 SAME -> GroupNorm -> ReLU] (reference modules.py:103-160)."""
+    """3x [Conv1d k5 SAME -> GroupNorm -> ReLU] (reference modules.py:103-160).
+    The convs compute in ``compute_dtype``; the GroupNorm returns float32."""
 
-    def __init__(self, in_dim: int, dim: int, chs_grp: int = 16, n_layers: int = 3):
+    def __init__(self, in_dim: int, dim: int, chs_grp: int = 16, n_layers: int = 3,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_layers = n_layers
         for i in range(n_layers):
-            self.add_module(f"conv_{i}", nn.Conv1d(in_dim if i == 0 else dim, dim, 5, padding=2))
+            self.add_module(f"conv_{i}", Conv1d(in_dim if i == 0 else dim, dim, 5, 2, compute_dtype))
             self.add_module(f"gn_{i}", nn.GroupNorm(dim // chs_grp, dim, eps=1e-6))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.transpose(1, 2)
         for i in range(self.n_layers):
-            x = F.relu(getattr(self, f"gn_{i}")(getattr(self, f"conv_{i}")(x)))
+            x = F.relu(getattr(self, f"gn_{i}")(getattr(self, f"conv_{i}")(x).float()))
         return x.transpose(1, 2)
 
 
 class AudioEncoder(nn.Module):
     def __init__(self, n_mel_channels=80, dim_f0=257, dim_energy=257,
                  enc_dim_d=256, enc_dim_p=320, enc_dim_e=320, enc_dim_r=256,
-                 neck_d=80, neck_p=64, neck_e=64, neck_r=64, chs_grp=16):
+                 neck_d=80, neck_p=64, neck_e=64, neck_r=64, chs_grp=16,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.split_in = (n_mel_channels, dim_f0, dim_energy, n_mel_channels)
         self.split_enc = (enc_dim_d, enc_dim_p, enc_dim_e, enc_dim_r)
-        self.convs_d = ConvBranch(n_mel_channels, enc_dim_d, chs_grp)
-        self.convs_p = ConvBranch(dim_f0, enc_dim_p, chs_grp)
-        self.convs_e = ConvBranch(dim_energy, enc_dim_e, chs_grp)
-        self.convs_r = ConvBranch(n_mel_channels, enc_dim_r, chs_grp)
+        self.convs_d = ConvBranch(n_mel_channels, enc_dim_d, chs_grp, compute_dtype=compute_dtype)
+        self.convs_p = ConvBranch(dim_f0, enc_dim_p, chs_grp, compute_dtype=compute_dtype)
+        self.convs_e = ConvBranch(dim_energy, enc_dim_e, chs_grp, compute_dtype=compute_dtype)
+        self.convs_r = ConvBranch(n_mel_channels, enc_dim_r, chs_grp, compute_dtype=compute_dtype)
         self.lstm_d = BiLSTM(enc_dim_d, neck_d)
         self.lstm_p = BiLSTM(enc_dim_p, neck_p)
         self.lstm_e = BiLSTM(enc_dim_e, neck_e)

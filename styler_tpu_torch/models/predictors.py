@@ -9,31 +9,33 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from styler_tpu_torch.models.transformer import LN_EPS, conv1d_cl
+from styler_tpu_torch.models.transformer import LN_EPS, Conv1d, conv1d_cl
 from styler_tpu_torch.ops.dropout import dropout as _dropout
 from styler_tpu_torch.ops.grl import gradient_reversal
 
 
 class StylePredictor(nn.Module):
     """2x [Conv1d k3 -> ReLU -> LayerNorm -> dropout] -> Linear -> scalar per
-    position, masked to 0 (reference modules.py:426-465)."""
+    position, masked to 0 (reference modules.py:426-465). The convs compute
+    in ``compute_dtype``; the LayerNorms and the Linear in float32."""
 
-    def __init__(self, in_dim=256, filter_size=256, kernel_size=3, dropout: float = 0.5):
+    def __init__(self, in_dim=256, filter_size=256, kernel_size=3, dropout: float = 0.5,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dropout = dropout
         pad = (kernel_size - 1) // 2
-        self.conv1d_1 = nn.Conv1d(in_dim, filter_size, kernel_size, padding=pad)
+        self.conv1d_1 = Conv1d(in_dim, filter_size, kernel_size, pad, compute_dtype)
         self.layer_norm_1 = nn.LayerNorm(filter_size, eps=LN_EPS)
-        self.conv1d_2 = nn.Conv1d(filter_size, filter_size, kernel_size, padding=pad)
+        self.conv1d_2 = Conv1d(filter_size, filter_size, kernel_size, pad, compute_dtype)
         self.layer_norm_2 = nn.LayerNorm(filter_size, eps=LN_EPS)
         self.linear_layer = nn.Linear(filter_size, 1)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor],
                 dropout: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: [B, T, C]; mask: [B, T] True at padding. Returns [B, T]."""
-        out = self.layer_norm_1(F.relu(conv1d_cl(self.conv1d_1, x)))
+        out = self.layer_norm_1(F.relu(conv1d_cl(self.conv1d_1, x)).float())
         out = _dropout(out, self.dropout, dropout)
-        out = self.layer_norm_2(F.relu(conv1d_cl(self.conv1d_2, out)))
+        out = self.layer_norm_2(F.relu(conv1d_cl(self.conv1d_2, out)).float())
         out = _dropout(out, self.dropout, dropout)
         out = self.linear_layer(out)[..., 0]
         if mask is not None:

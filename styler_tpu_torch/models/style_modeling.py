@@ -82,6 +82,7 @@ class StyleModeling(nn.Module):
         super().__init__()
         cfg = self.config = config
         h = cfg.encoder_hidden
+        dt = cfg.model_dtype
         self.text_encoder = TextEncoder(
             vocab_size=VOCAB_SIZE,
             max_seq_len=cfg.max_seq_len,
@@ -91,6 +92,7 @@ class StyleModeling(nn.Module):
             d_inner=cfg.fft_conv1d_filter_size,
             kernel_sizes=tuple(cfg.fft_conv1d_kernel_size),
             dropout=cfg.encoder_dropout,
+            compute_dtype=dt,
         )
         self.audio_encoder = AudioEncoder(
             n_mel_channels=cfg.n_mel_channels,
@@ -105,6 +107,7 @@ class StyleModeling(nn.Module):
             neck_e=cfg.va_neck_hidden_e,
             neck_r=cfg.va_neck_hidden_r,
             chs_grp=cfg.va_chs_grp,
+            compute_dtype=dt,
         )
         self.text_linear_down = nn.Linear(h, cfg.va_neck_hidden_t)
         self.speaker_linear_p = nn.Linear(cfg.speaker_embed_dim, cfg.va_neck_hidden_p * 2)
@@ -125,7 +128,7 @@ class StyleModeling(nn.Module):
         def predictor():
             return StylePredictor(
                 h, cfg.style_predictor_filter_size, cfg.style_predictor_kernel_size,
-                cfg.style_predictor_dropout,
+                cfg.style_predictor_dropout, dt,
             )
 
         self.duration_predictor = predictor()

@@ -10,6 +10,11 @@ PostNet's BatchNorm sees the batch statistics, and makes the two momentum
 updates, of the reference's two forwards. Dropout is a separate switch:
 the ``dropout`` generator argument, ``None`` for none. ``residual=False``
 skips the residual decode.
+
+``config.compute_dtype = "bfloat16"`` is the JAX package's mixed
+precision: the sites that take flax's ``dtype=`` there compute in
+bfloat16 here (``models/transformer.py``), everything else in float32;
+the parameters stay float32.
 """
 
 from __future__ import annotations
@@ -43,11 +48,8 @@ class StylerOutput(NamedTuple):
 class STYLER(nn.Module):
     def __init__(self, config: Config):
         super().__init__()
-        if config.compute_dtype != "float32":
-            raise NotImplementedError(
-                "the port's acoustic model runs float32 only; a bfloat16 "
-                "acoustic model is a later slice (ROADMAP.md)"
-            )
+        if config.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype {config.compute_dtype!r}: float32 or bfloat16")
         self.config = config
         self.style_modeling = StyleModeling(config)
         self.decoder = MelDecoder(
@@ -58,9 +60,12 @@ class STYLER(nn.Module):
             d_inner=config.fft_conv1d_filter_size,
             kernel_sizes=tuple(config.fft_conv1d_kernel_size),
             dropout=config.decoder_dropout,
+            compute_dtype=config.model_dtype,
         )
+        # the mel projection stays float32 in the bfloat16 mode
         self.mel_linear = nn.Linear(config.decoder_hidden, config.n_mel_channels)
-        self.postnet = PostNet(n_mel_channels=config.n_mel_channels)
+        self.postnet = PostNet(n_mel_channels=config.n_mel_channels,
+                               compute_dtype=config.model_dtype)
 
     def decode(self, style_output: torch.Tensor, mel_mask: torch.Tensor,
                dropout: Optional[torch.Generator] = None):

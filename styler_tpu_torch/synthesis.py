@@ -28,7 +28,10 @@ import torch
 from styler_tpu_torch.core.checkpoint import (
     default_acoustic_asset,
     default_vocoder_asset,
+    latest_step,
     load_acoustic_npz,
+    load_reference_checkpoint,
+    load_trained_checkpoint,
     load_vocoder_npz,
 )
 from styler_tpu_torch.core.config import Config, bucket_for
@@ -46,6 +49,9 @@ from styler_tpu_torch.textproc import G2p, text_to_sequence, to_phoneme_string
 from styler_tpu_torch.vocoder import make_generator
 
 _log = logging.getLogger("styler_tpu_torch.synthesis")
+
+#: acoustic checkpoints in the reference's torch format (``checkpoint_<step>.pth.tar``)
+_REFERENCE_SUFFIXES = (".pth.tar", ".pth", ".tar")
 
 
 @dataclasses.dataclass
@@ -643,6 +649,50 @@ def _random_vocoder(config: Config) -> dict:
     return to_flax_tree(module)[0]
 
 
+def _random_acoustic(config: Config) -> Tuple[dict, dict]:
+    """Flax-style (params, batch_stats) of a STYLER drawn by
+    ``train/state.py:init_like_flax`` from an explicit seeded
+    ``torch.Generator`` (``config.seed``): the same weights on every device
+    (for one torch version: its random streams may change between
+    releases). The JAX package's ``"random"`` weights come from flax's ``init`` with a
+    ``jax.random`` key, which no torch generator reproduces, so only the
+    distributions of the two agree."""
+    from styler_tpu_torch.train.state import init_like_flax
+
+    model = STYLER(config)
+    init_like_flax(model, torch.Generator().manual_seed(config.seed))
+    return to_flax_tree(model)
+
+
+def _acoustic_weights(config: Config, ckpt_path: Optional[str]) -> Tuple[dict, dict]:
+    """(params, batch_stats) of the acoustic weight form ``ckpt_path``
+    names (``load_synthesizer``'s docstring)."""
+    if ckpt_path is None:
+        ckpt_path = default_acoustic_asset()
+        if ckpt_path is None:
+            raise FileNotFoundError("assets/acoustic/styler_gen.npz is missing")
+    if ckpt_path == "random":
+        return _random_acoustic(config)
+    if not os.path.exists(ckpt_path):
+        raise FileNotFoundError(f"acoustic checkpoint: {ckpt_path}")
+    if ckpt_path.endswith(_REFERENCE_SUFFIXES):
+        return load_reference_checkpoint(ckpt_path, config)
+    if ckpt_path.endswith(".npz"):
+        return load_acoustic_npz(ckpt_path)
+    if os.path.isdir(ckpt_path) and latest_step(ckpt_path) is None:
+        if any(d.isdigit() for d in os.listdir(ckpt_path)):
+            raise NotImplementedError(
+                f"acoustic checkpoint {ckpt_path!r}: an orbax step directory of the JAX "
+                "package; orbax imports jax and the card has no tensorstore, so the port "
+                "cannot read it (ROADMAP.md, Queue 1 [9], blocked)")
+        raise NotImplementedError(f"acoustic checkpoint {ckpt_path!r}: a directory with no "
+                                  "step_<N>.pt checkpoint of the port's trainer")
+    if os.path.isdir(ckpt_path) or ckpt_path.endswith(".pt"):
+        return load_trained_checkpoint(ckpt_path, config)[:2]
+    raise ValueError(f"acoustic checkpoint {ckpt_path!r}: not a .npz asset, a step_<N>.pt "
+                     "or its directory, or a reference .pth.tar")
+
+
 def load_synthesizer(
     config: Config,
     ckpt_path: Optional[str] = None,
@@ -652,12 +702,23 @@ def load_synthesizer(
 ) -> Synthesizer:
     """Build a Synthesizer on ``device`` (CUDA unless ``device="cpu"``;
     with no CUDA device and no device given this raises, with no CPU
-    fallback).
+    fallback). ``config.compute_dtype="bfloat16"`` runs the acoustic
+    model in the JAX package's mixed precision.
 
-    Acoustic weights: ``ckpt_path=None`` loads the committed trained asset
-    (``assets/acoustic/styler_gen.npz``); an explicit ``.npz`` path loads
-    that asset file. Reference ``.pth.tar`` checkpoints, orbax directories
-    and ``"random"`` acoustic weights are a later slice and raise
+    Acoustic weights (``ckpt_path``):
+
+    - ``None``: the committed trained asset (``assets/acoustic/styler_gen.npz``);
+    - a ``.npz`` asset (``core/checkpoint.py:save_acoustic_npz``);
+    - the port's trainer's ``step_<N>.pt``, or its checkpoint directory,
+      resolved to the latest step (the JAX package reads an orbax step
+      directory there); only the ``"model"`` state dict is read;
+    - the reference's ``checkpoint_<step>.pth.tar`` (``.pth``, ``.tar``),
+      through ``core/import_torch.py:import_styler_state``;
+    - ``"random"``: weights drawn from a seeded ``torch.Generator``
+      (``config.seed``), the same on every device; they cannot equal flax's
+      random init, which draws from a ``jax.random`` key.
+
+    An orbax directory, or a directory without a ``step_<N>.pt``, raises
     ``NotImplementedError``.
 
     Vocoder (resolution rules 1-3 of the JAX ``load_synthesizer``), for
@@ -666,29 +727,25 @@ def load_synthesizer(
     1. an explicit ``vocoder_path``: a ``.npz`` asset loads for either
        arch; a reference ``.pth.tar`` loads for HiFi-GAN
        (``core/import_torch.py``, weight norm folded); an orbax directory
-       is a later slice;
+       raises (orbax imports jax; blocked, ROADMAP.md Queue 1 [9]);
     2. no path: the committed trained asset of the arch; with neither a
        path nor an arch given, the arch is promoted to the trained
-       iSTFTNet, as the JAX package does when it serves its own weights;
+       iSTFTNet, as the JAX package does when it serves its own weights,
+       except for a reference ``.pth.tar`` acoustic checkpoint, which keeps
+       ``config.vocoder`` (HiFi-GAN by default) for parity with the
+       published model;
     3. ``vocoder_path="random"``: a generator drawn from a seeded
        ``torch.Generator`` (``config.seed``). It cannot equal flax's
        random init, which draws from a ``jax.random`` key.
     """
     device = resolve_device(device)
-    later = "is a later slice of the port (ROADMAP.md, Queue 1 [9])"
-    if ckpt_path is None:
-        ckpt_path = default_acoustic_asset()
-        if ckpt_path is None:
-            raise FileNotFoundError("assets/acoustic/styler_gen.npz is missing")
-    elif not ckpt_path.endswith(".npz"):
-        raise NotImplementedError(f"acoustic checkpoint {ckpt_path!r}: only .npz assets load; "
-                                  f"reference/orbax/random weights {later}")
-    params, batch_stats = load_acoustic_npz(ckpt_path)
-
+    from_reference = bool(ckpt_path) and ckpt_path.endswith(_REFERENCE_SUFFIXES)
     if vocoder_arch:
         config = config.replace(vocoder=vocoder_arch)
-    elif vocoder_path is None:
+    elif vocoder_path is None and not from_reference:
         config = config.replace(vocoder="iSTFTNet")
+    params, batch_stats = _acoustic_weights(config, ckpt_path)
+
     if vocoder_path == "random":
         vocoder_params = _random_vocoder(config)
     elif vocoder_path is None:
@@ -699,7 +756,10 @@ def load_synthesizer(
     elif not os.path.exists(vocoder_path):
         raise FileNotFoundError(f"vocoder checkpoint: {vocoder_path}")
     elif os.path.isdir(vocoder_path):
-        raise NotImplementedError(f"vocoder checkpoint {vocoder_path!r}: an orbax directory {later}")
+        raise NotImplementedError(
+            f"vocoder checkpoint {vocoder_path!r}: an orbax directory; orbax imports jax and "
+            "the card has no tensorstore, so the port cannot read it (ROADMAP.md, Queue 1 [9], "
+            "blocked)")
     elif vocoder_path.endswith(".npz"):
         vocoder_params = load_vocoder_npz(vocoder_path)
     else:

@@ -93,6 +93,11 @@ def init_like_flax(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def _state(config: Config, model: STYLER, device) -> TrainState:
+    if config.compute_dtype != "float32":
+        raise NotImplementedError(
+            "training with compute_dtype='bfloat16' is a later slice of the port "
+            "(ROADMAP.md, Queue 1 [12]); the bfloat16 acoustic model serves only"
+        )
     if config.acc_steps > 1:
         raise NotImplementedError(
             "gradient accumulation (acc_steps > 1) is not ported yet (ROADMAP.md)"

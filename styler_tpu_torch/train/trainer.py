@@ -16,17 +16,20 @@ resumed run repeats the batches and the masks of an uninterrupted one.
 
 from __future__ import annotations
 
-import glob
 import itertools
 import json
 import os
-import re
 import time
 from typing import Callable, Dict, Iterator, Optional
 
 import torch
 
-from styler_tpu_torch.core.checkpoint import default_acoustic_asset, load_acoustic_npz
+from styler_tpu_torch.core.checkpoint import (
+    checkpoint_file,
+    default_acoustic_asset,
+    latest_step,
+    load_acoustic_npz,
+)
 from styler_tpu_torch.core.config import Config
 from styler_tpu_torch.core.device import resolve_device
 from styler_tpu_torch.data.dataset import (
@@ -52,10 +55,6 @@ def dropout_generator(seed: int, step: int, device) -> torch.Generator:
     return g
 
 
-def checkpoint_file(ckpt_dir: str, step: int) -> str:
-    return os.path.join(ckpt_dir, f"step_{step}.pt")
-
-
 def save_checkpoint(ckpt_dir: str, state: TrainState) -> str:
     """Model (parameters and BatchNorm statistics), optimizer moments and
     step in one ``torch.save`` file. Returns its path."""
@@ -74,11 +73,9 @@ def save_checkpoint(ckpt_dir: str, state: TrainState) -> str:
 def restore_checkpoint(ckpt_dir: str, step: int, state: TrainState) -> TrainState:
     """Load step ``step`` (-1: the latest) into ``state`` in place."""
     if step < 0:
-        steps = [int(m.group(1)) for f in glob.glob(os.path.join(ckpt_dir, "step_*.pt"))
-                 if (m := re.search(r"step_(\d+)\.pt$", f))]
-        if not steps:
+        step = latest_step(ckpt_dir)
+        if step is None:
             raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
-        step = max(steps)
     blob = torch.load(checkpoint_file(ckpt_dir, step), map_location=state.device,
                       weights_only=True)
     state.model.load_state_dict(blob["model"])
